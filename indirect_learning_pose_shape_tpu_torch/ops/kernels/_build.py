@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+At first use every ``.cu`` file under the package's ``csrc/`` is compiled by
+one plain ``nvcc`` call into a shared library with a C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/ilps_torch_kernels/libilps_<hash>.so csrc/*.cu
+
+and loaded with ``ctypes``. The file name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused. No
+PyTorch header is included, which keeps the build to seconds.
+
+Calling convention of every entry point: pointers and the CUDA stream are
+``c_void_p`` (a plain ``c_int`` would truncate a 64-bit pointer), sizes are
+``c_int`` and scalars ``c_float``; the function launches on the given stream
+(``torch.cuda.current_stream().cuda_stream``) and returns
+``cudaGetLastError()``. :func:`launch` raises on a non-zero code.
+
+There is no fallback: without ``nvcc``, or when the build fails, this raises.
+
+Launch counters: each kernel wrapper calls :func:`count` exactly where it
+launches its kernel, so a run can show which kernels the main path went
+through (``reset_counts`` / ``counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "ilps_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_entries: dict[str, ctypes._CFuncPtr] = {}
+_counts: dict[str, int] = {}
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name` (called by the wrappers only)."""
+    _counts[name] = _counts.get(name, 0) + 1
+
+
+def counts() -> dict[str, int]:
+    return dict(_counts)
+
+
+def reset_counts() -> None:
+    _counts.clear()
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libilps_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library unless it already exists."""
+    out = _library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Compile to a temporary name and rename: a concurrent process never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+def entry(fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """Entry point `fn_name` with its argument types set, resolved once."""
+    fn = _entries.get(fn_name)
+    if fn is None:
+        fn = getattr(library(), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[fn_name] = fn
+    return fn
+
+
+def launch(fn_name: str, *args) -> None:
+    """Call entry point `fn_name` with `args` = (ctypes type, value) pairs.
+
+    The entry point is resolved and typed on its first call only. Raises if
+    it returns a CUDA error: a refused launch never runs and a later
+    synchronize would not report it.
+    """
+    fn = entry(fn_name, (t for t, _ in args))
+    err = fn(*(v for _, v in args))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: cudaError {err}")

@@ -1,0 +1,155 @@
+"""Where a serving request's time goes on the card, per bucket.
+
+    python -m indirect_learning_pose_shape_tpu_torch.tools.profile_serve \\
+        [--preset config4_full] [--buckets 1 4 8 32 128] [--out profile_serve.json]
+
+Builds a `serve.Predictor` on the preset at full width with seed-0 weights
+(the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the bodies
+stay in frame and the raster kernel renders real silhouettes), warms every
+bucket up, and for each bucket sends requests of exactly that batch from
+host numpy images, one at a time (closed loop, one client). A request is
+`Predictor.__call__` + `predict.render_silhouette`, ended by a synchronize.
+
+Per bucket it reports:
+
+- `request_ms_median` / `request_ms_p90`, `forward_ms_median`: host wall
+  over `--timed` requests (forward only = without the silhouette);
+- from `torch.profiler` over `--profiled` more requests, per request:
+  `device_ms` (the sum of every device kernel's and copy's time),
+  `profiled_wall_ms` (host wall of the profiled requests; the profiler
+  lengthens it), `device_busy_share` = device_ms / profiled_wall_ms (a lower
+  bound of the busy share without the profiler), `kernels_per_request`
+  (device kernel and copy launches), `by_category_ms` (see `category`), and
+  the eight largest device items as [ms, name, launches].
+
+Needs one CUDA device; writes the JSON to `--out` and prints it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+CATEGORIES = (
+    ("raster kernel", ("raster_fwd_kernel",)),
+    ("lbs kernel", ("lbs_forward_kernel",)),
+    ("H2D copy", ("Memcpy HtoD",)),
+    ("conv/gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass")),
+)
+
+
+def category(name: str) -> str:
+    """The `by_category_ms` bucket of a device item, by its name."""
+    lower = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k.lower() in lower for k in keys):
+            return cat
+    return "other"
+
+
+def _request(p, cfg, consts, images):
+    from indirect_learning_pose_shape_tpu_torch import predict
+
+    return predict.render_silhouette(p(images), consts, cfg)
+
+
+def _wall_ms(fn, reps: int) -> list[float]:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    def req():
+        return _request(p, cfg, consts, images)
+
+    req()
+    torch.cuda.synchronize()
+    full = _wall_ms(req, timed)
+    fwd = _wall_ms(lambda: p(images), timed)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            req()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / profiled
+
+    items = []  # (ms per request, name, launches per request)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        items.append((e.self_device_time_total / 1e3 / profiled, e.key, e.count / profiled))
+    device = sum(ms for ms, _, _ in items)
+    by_cat: dict[str, float] = {}
+    for ms, name, _ in items:
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
+    items.sort(reverse=True)
+    return {
+        "request_ms_median": statistics.median(full),
+        "request_ms_p90": float(np.percentile(full, 90)),
+        "forward_ms_median": statistics.median(fwd),
+        "profiled_wall_ms": wall,
+        "device_ms": device,
+        "device_busy_share": device / wall,
+        "by_category_ms": by_cat,
+        "kernels_per_request": sum(n for _, _, n in items),
+        "top": [[ms, name[:80], n] for ms, name, n in items[:8]],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="config4_full")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 8, 32, 128])
+    ap.add_argument("--timed", type=int, default=30)
+    ap.add_argument("--profiled", type=int, default=10)
+    ap.add_argument("--out", default="profile_serve.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device found", file=sys.stderr)
+        return 1
+
+    from indirect_learning_pose_shape_tpu_torch import configs, predict, serve
+    from indirect_learning_pose_shape_tpu_torch.utils import assets
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    cfg = configs.PRESETS[args.preset]
+    model, consts = predict.load_model(cfg, asset=assets.load_asset(), seed=0, device="cuda")
+    with torch.no_grad():
+        model.ief.layers[-1].weight.mul_(0.01)
+    p = serve.Predictor(cfg, model, consts)
+    p.warmup(args.buckets)
+    rng = np.random.RandomState(0)
+    size = cfg.image_size
+    result = {"device": smi, "preset": args.preset, "buckets": {}}
+    for b in args.buckets:
+        images = rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32)
+        result["buckets"][str(b)] = profile_bucket(
+            p, cfg, consts, images, args.timed, args.profiled
+        )
+    text = json.dumps(result, indent=1)
+    with open(args.out, "w") as f:
+        f.write(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""PyTorch port, camera + soft raster: the port against the JAX reference on
+CPU. The Pallas raster kernel runs in interpret mode (test_kernels.py's
+setup: 128², 8 parts); the port's kernel wrapper runs its plain pairwise
+version for CPU tensors.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from indirect_learning_pose_shape_tpu.ops import camera as jcamera
+from indirect_learning_pose_shape_tpu.ops import raster as jraster
+from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
+from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, raster_cuda
+
+
+def _setup(rng, batch=2, num_verts=500, size=128, num_parts=8):
+    verts2d = (rng.rand(batch, num_verts, 2) * size * 1.2 - 0.1 * size).astype(np.float32)
+    labels = rng.randint(0, num_parts, size=num_verts)
+    jl = jraster.build_part_layout(labels, num_parts, lane=128)
+    tl = raster.build_part_layout(labels, num_parts)
+    jcfg = jraster.RasterConfig(image_size=size, num_parts=num_parts, sigma=2.0)
+    tcfg = raster.RasterConfig(image_size=size, num_parts=num_parts, sigma=2.0)
+    return verts2d, (jl, jcfg), (tl, tcfg)
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+def test_pairwise_twin_matches_jax(rng, jax_impl):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    ref = jraster.raster_scores(jnp.asarray(v), jl, jcfg, impl=jax_impl)
+    out = raster.raster_scores(torch.from_numpy(v), tl, tcfg, impl="torch")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_wrapper_on_cpu_matches_twin(rng):
+    v, _, (tl, tcfg) = _setup(rng, batch=1, size=64)
+    v = torch.from_numpy(v)
+    a = raster.raster_scores(v, tl, tcfg, impl="kernel")
+    b = raster.raster_scores(v, tl, tcfg, impl="torch")
+    assert torch.equal(a, b)
+    assert _build.counts().get(raster_cuda.KERNEL, 0) == 0  # no launch on CPU
+
+
+def test_off_canvas_vertices_give_zero(rng):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng, batch=1, num_verts=100)
+    v[0, :50] = 5000.0
+    ref = jraster.raster_scores(jnp.asarray(v), jl, jcfg, impl="pallas")
+    out = raster.raster_scores(torch.from_numpy(v), tl, tcfg, impl="torch")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    v[0, :] = 5000.0
+    assert not raster.raster_scores(torch.from_numpy(v), tl, tcfg).any()
+
+
+@pytest.mark.parametrize("with_positions", [False, True])
+def test_build_part_layout_matches_jax(tiny_asset, with_positions):
+    labels = tiny_asset.part_labels()
+    pos = tiny_asset.v_template if with_positions else None
+    j = jraster.build_part_layout(labels, 24, positions=pos)
+    t = raster.build_part_layout(labels, 24, positions=pos)
+    assert t.seg_size == j.seg_size and t.num_parts == j.num_parts
+    for f in ("perm", "valid", "inv"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)), err_msg=f)
+
+
+def test_soft_rasterize_matches_jax(rng):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    ref = jraster.soft_rasterize(jnp.asarray(v), jl, jcfg, impl="xla")
+    out = raster.soft_rasterize(torch.from_numpy(v), tl, tcfg, impl="kernel")
+    for k in ("probs", "silhouette"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-5, err_msg=k)
+
+
+def test_kernel_wrapper_refuses_gradients(rng):
+    v, _, (tl, tcfg) = _setup(rng, batch=1, size=32)
+    vt = torch.from_numpy(v).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
+        raster.raster_scores(vt, tl, tcfg, impl="kernel")
+    with torch.no_grad():
+        raster.raster_scores(vt, tl, tcfg, impl="kernel")
+
+
+@pytest.mark.parametrize("seg_size", [128, 200])
+def test_block_bboxes(seg_size):
+    """Per-(class, 128-slot block) boxes, a partial last block included."""
+    rng = np.random.RandomState(5)
+    C, B = 3, 2
+    v = rng.randn(B, 2, C * seg_size).astype(np.float32)
+    box = raster_cuda.block_bboxes(torch.from_numpy(v), C, seg_size).numpy()
+    nb = -(-seg_size // raster_cuda.KV)
+    assert box.shape == (B, C * nb, 4)
+    for c in range(C):
+        for j in range(nb):
+            s = v[:, :, c * seg_size + j * 128 : c * seg_size + min(seg_size, (j + 1) * 128)]
+            want = np.stack([s[:, 0].min(1), s[:, 0].max(1), s[:, 1].min(1), s[:, 1].max(1)], 1)
+            np.testing.assert_array_equal(box[:, c * nb + j], want)
+
+
+def test_camera_matches_jax():
+    rng = np.random.RandomState(6)
+    x3d = rng.randn(2, 7, 3).astype(np.float32)
+    cam = rng.randn(2, 3).astype(np.float32)
+    t = torch.from_numpy
+    np.testing.assert_allclose(
+        camera.project_pixel(t(x3d), t(cam), 128).numpy(),
+        np.asarray(jcamera.project_pixel(jnp.asarray(x3d), jnp.asarray(cam), 128)),
+        atol=1e-5,
+    )
+    cam_t = np.array([[0.1, -0.2, 3.0], [0.0, 0.1, 2.5]], np.float32)
+    np.testing.assert_allclose(
+        camera.perspective_project_pixel(t(x3d), t(cam_t), 500.0, 128).numpy(),
+        np.asarray(jax.jit(jcamera.perspective_project_pixel, static_argnums=(2, 3))(
+            jnp.asarray(x3d), jnp.asarray(cam_t), 500.0, 128)),
+        rtol=1e-5, atol=1e-3,
+    )
