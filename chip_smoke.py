@@ -7,45 +7,64 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Device: requires CUDA, prints the card's name and power limit. TF32 is
    turned off for float32 matmuls and convolutions.
-2. Build: compiles csrc/*.cu with nvcc (ops/kernels/_build.py) and prints the
-   build time.
-3. Kernels against their plain twins, on the card, at the serving path's
-   shapes: the fused LBS kernel at B=32 on the SMPL-sized asset (forward,
-   and the gradient through its autograd Function), the raster forward
-   kernel at B=4, 256², 24 parts x 384 slots (plus a case with half the
-   vertices 5000 px off canvas). Prints each max error and the median
-   device time of each kernel and its twin (each captured in a CUDA graph
-   and replayed, so no host launch cost is in the number).
+2. Build: compiles csrc/*.cu with nvcc, one process per source in parallel
+   (ops/kernels/_build.py), and prints the build time.
+3. Kernels against their plain twins, on the card: the fused LBS kernel at
+   B=32 on the SMPL-sized asset (forward, and the gradient through its
+   autograd Function); the raster forward kernel at B=4, 256², 24 parts x
+   384 slots (plus a case with half the vertices 5000 px off canvas); the
+   raster backward kernel at B=4 with a random cotangent: normalised error,
+   exact zeros for off-canvas slots, bitwise-equal repeated runs. Prints
+   each kernel's and twin's device time: each call captured in a CUDA
+   graph and replayed, so no host launch cost is in the number.
 4. Serving: a `Predictor` on the full-width config4_full model (ResNet-18
-   bf16, IEF, SMPL, seed-0 weights) with both kernels on (`auto`), warmed
-   up, answers requests of batch 1, 3, 8 and 32 and renders each request's
-   soft silhouette. Checks output shapes and finiteness, that padding leaves
-   real rows unchanged (against the images run alone in the same bucket and
-   in bucket 1), that both kernels ran during the requests, and that
-   the same requests with the plain twins forced agree. Prints the median
-   latency per bucket.
+   bf16, IEF, SMPL, seed-0 weights) with both forward kernels on (`auto`),
+   warmed up, answers requests of batch 1, 3, 8 and 32 and renders each
+   request's soft silhouette. Checks output shapes and finiteness, that
+   padding leaves real rows unchanged (against the images run alone in the
+   same bucket and in bucket 1), that both kernels ran during the requests,
+   and that the same requests with the plain twins forced agree. Prints the
+   median latency per bucket.
+5. Training: the config4_full step at B=32, 256² (`train.init_state`,
+   `train.fused_step`: batch generation with the LBS and raster forward
+   kernels, then forward, losses, backward through the raster backward
+   kernel, Adam). After a warm-up, 20 timed steps are the counted main path:
+   each step must launch the raster forward kernel twice, the raster
+   backward kernel once and the LBS kernel twice. Prints the median ms/step
+   and img/s. Then 20 steps on one fixed batch must lower the total loss;
+   the first step's loss terms and gradients with the kernels must match
+   the same step with the plain twins forced (with the bf16 encoder, its
+   leaves within a small multiple of the noise floor that the twins' step
+   shows when its pixel vertices are jittered by a few float32 ulps); and
+   the raster kernels are held against their twins and timed on that
+   step's own inputs (the predicted vertices and the loss's cotangent of
+   the scores).
 
 The last three lines of standard output are the kernel record
-({"kernels": [...]}), the `nvidia-smi` name/power-limit line and
-{"ok": true, "device": {...}}.
+({"kernels": [...]}, with each kernel's launches on the training main path,
+its time and its plain twin's at the training path's shapes, and its bound),
+the `nvidia-smi` name/power-limit line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from indirect_learning_pose_shape_tpu_torch import configs, predict, serve
+from indirect_learning_pose_shape_tpu_torch import configs, losses, predict, serve, train
+from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
+from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import smi_line
 from indirect_learning_pose_shape_tpu_torch.utils import assets
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
@@ -53,18 +72,34 @@ REQUESTS = (1, 3, 8, 32)
 LBS_BATCH = 32
 RASTER_BATCH = 4
 TOL = 1e-4
+GRAD_TOL = 2e-5  # raster gradient, after normalising by its largest entry
+# The same on the training loss's own cotangent, where the culled tails are
+# not negligible (see training_phase): 3.3e-4 measured on an H100.
+CULL_TOL = 2e-3
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 20
+# The bf16 step's noise-floor control: the twins' step against itself with
+# the predicted pixel vertices multiplied by (1 + JITTER·N(0, 1)), a change
+# of a few float32 ulps, once per seed in JITTER_SEEDS. The kernels' step
+# must stay within FLOOR_MULTIPLE times the largest such encoder error.
+JITTER = 1e-6
+JITTER_SEEDS = (0, 1, 2)
+FLOOR_MULTIPLE = 4.0
+PER_STEP = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 2, raster_cuda.KERNEL_BWD: 1}
+
+# The card's limits for bounds (H100 SXM, at its 700 W limit): HBM 3.35 TB/s
+# and 67 TFLOP/s float32 outside the tensor cores (NVIDIA's data sheet);
+# exponentials at the special-function units' 16 results per clock per SM
+# (CUDA C++ Programming Guide, throughput table, compute capability 9.0) x
+# 132 SMs x 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, replays: int, reps: int = 5) -> float:
@@ -112,6 +147,98 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
+def bound(nbytes: float, seconds_of_ops: float) -> dict:
+    """bound_ms = the larger of the bytes' time at HBM rate and the ops' time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {
+        "bound_ms": max(t_bytes, seconds_of_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= seconds_of_ops else "operations",
+    }
+
+
+def lbs_bound(consts, B: int) -> dict:
+    """Each input read once (bases, betas, pose features, rel) and each
+    output written once (verts, v_posed, T); 2 FLOPs per multiply-add."""
+    Vp, J = consts.num_verts_padded, consts.num_joints
+    Kb, Kp = consts.num_betas, (J - 1) * 9
+    nbytes = 4 * (
+        consts.v_template_p.numel() + consts.shapedirs_p.numel() + consts.posedirs_p.numel()
+        + consts.weights_p.numel() + B * (Kb + Kp + J * 12) + B * Vp * (3 + 3 + 12)
+    )
+    flops = 2 * B * Vp * (3 * Kb + 3 * Kp + 12 * J + 9)
+    return bound(nbytes, flops / FP32_FLOP_PER_S)
+
+
+def raster_pairs(vx: torch.Tensor, layout, rcfg, kernel_boxes: bool = False) -> int:
+    """(pixel, slot) pairs the culled raster needs on this data: each real
+    slot against the pixels inside its 128-slot block's box over real slots,
+    grown by the cutoff and clipped to the canvas. The sentinel padding
+    slots are left out: their exponentials are exactly 0.
+
+    kernel_boxes=True counts instead what the kernels compute: every slot,
+    padding included, in the kernels' own boxes, which the padding stretches
+    to the canvas edge in a partly filled block."""
+    C, S = layout.num_parts, layout.seg_size
+    B = vx.shape[0]
+    nb = -(-S // raster_cuda.KV)
+    v = vx.transpose(1, 2).reshape(B, 2, C, S).double()
+    valid = layout.valid.reshape(C, S) > 0
+    if nb * raster_cuda.KV != S:
+        v = torch.nn.functional.pad(v, (0, nb * raster_cuda.KV - S), value=float("nan"))
+        valid = torch.nn.functional.pad(valid, (0, nb * raster_cuda.KV - S))
+    v = v.reshape(B, 2, C * nb, raster_cuda.KV)
+    keep = ~torch.isnan(v[0, 0]) if kernel_boxes else valid.reshape(C * nb, raster_cuda.KV)
+    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+    lo = torch.where(keep, v, inf).amin(-1)
+    hi = torch.where(keep, v, -inf).amax(-1)
+    cut, last = rcfg.cutoff_sigmas * rcfg.sigma, rcfg.image_size - 1
+    n0 = (torch.clamp(torch.floor(hi + cut), max=last)
+          - torch.clamp(torch.ceil(lo - cut), min=0) + 1).clamp(min=0)  # [B, 2, blocks]
+    npx = n0[:, 0] * n0[:, 1]
+    slots = keep.sum(-1).to(v.dtype)  # [blocks]
+    return int(torch.nan_to_num(npx * slots, nan=0.0).sum())
+
+
+def raster_bound(vx: torch.Tensor, layout, rcfg, backward: bool) -> dict:
+    """Bytes: the slots and boxes read once, the scores written once
+    (forward) or the cotangent read once and the slot gradient written once
+    (backward). Operations: one exponential per pair the data needs
+    (`raster_pairs`)."""
+    B, N, _ = vx.shape
+    C, H = layout.num_parts, rcfg.image_size
+    boxes = B * C * (-(-layout.seg_size // raster_cuda.KV)) * 4
+    nbytes = 4 * (2 * B * N + boxes + B * C * H * H + (2 * B * N if backward else 0))
+    pairs = raster_pairs(vx, layout, rcfg)
+    out = bound(nbytes, pairs / EXP_PER_S)
+    out["pairs"] = pairs
+    out["pairs_in_kernel_boxes"] = raster_pairs(vx, layout, rcfg, kernel_boxes=True)
+    return out
+
+
+@contextlib.contextmanager
+def jittered_render(scale: float, seed: int):
+    """Inside the block the training render sees its pixel vertices
+    multiplied by (1 + scale·N(0, 1)), the noise drawn from `seed`: a change
+    of a few float32 ulps, for the bf16 noise-floor control."""
+    plain = raster.soft_rasterize_train
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jittered(verts2d, *args, **kwargs):
+        noise = torch.randn(verts2d.shape, device=verts2d.device, generator=gen)
+        return plain(verts2d * (1 + scale * noise), *args, **kwargs)
+
+    raster.soft_rasterize_train = jittered
+    try:
+        yield
+    finally:
+        raster.soft_rasterize_train = plain
+
+
+def norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / (float(b.abs().max()) + 1e-12)
+
+
 def lbs_phase(asset, rng) -> dict:
     consts = smpl.smpl_consts(asset, device="cuda")
     pose = torch.tensor(rng.randn(LBS_BATCH, 72).astype(np.float32) * 0.4, device="cuda")
@@ -152,11 +279,9 @@ def lbs_phase(asset, rng) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def raster_phase(model_consts, asset, cfg, rng) -> dict:
-    layout = model_consts.part_layout
-    C, S = layout.num_parts, layout.seg_size
-    rcfg = cfg.raster
-    # Realistic vertices: posed bodies projected at the serving camera.
+def posed_verts2d(model_consts, asset, cfg, rng):
+    """Realistic raster inputs: posed bodies projected at the serving camera
+    (B=4), and the same with half the vertices 5000 px off canvas."""
     pose = torch.tensor(rng.randn(RASTER_BATCH, 72).astype(np.float32) * 0.3, device="cuda")
     betas = torch.tensor(rng.randn(RASTER_BATCH, 10).astype(np.float32), device="cuda")
     verts = smpl.smpl_forward(model_consts.smpl, pose, betas, impl="torch")["verts"]
@@ -167,12 +292,18 @@ def raster_phase(model_consts, asset, cfg, rng) -> dict:
     verts2d = camera.project_pixel(verts, cam, cfg.image_size)
     far = verts2d.clone()
     far[:, : asset.num_verts // 2] = 5000.0
+    return verts2d, far
 
+
+def raster_phase(model_consts, cfg, verts2d, far) -> dict:
+    layout = model_consts.part_layout
+    C, S = layout.num_parts, layout.seg_size
+    rcfg = cfg.raster
     errs = []
     for name, v2 in (("on-canvas", verts2d), ("half off-canvas", far)):
         vx = raster.gather_class_sorted(v2, layout)
-        kern = raster_cuda.raster_scores_fwd(vx, C, S, rcfg)
-        twin = raster.pairwise_scores(vx, C, S, rcfg)
+        kern = raster_cuda.raster_scores4(vx, C, S, rcfg)
+        twin = raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch")
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kern).all()), f"raster kernel ({name}) not finite")
         bad = (kern - twin).abs() > TOL + TOL * twin.abs()
@@ -182,13 +313,53 @@ def raster_phase(model_consts, asset, cfg, rng) -> dict:
         print(f"[kernels] raster {name}: max abs err {err:.3e} (max score {float(twin.max()):.2f})")
 
     vx = raster.gather_class_sorted(verts2d, layout)
-    ms = device_ms(lambda: raster_cuda.raster_scores_fwd(vx, C, S, rcfg), 20)
-    plain_ms = device_ms(lambda: raster.pairwise_scores(vx, C, S, rcfg), 2)
+    ms = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg), 20)
+    plain_ms = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch"), 2)
     print(
         f"[kernels] raster B={RASTER_BATCH} {rcfg.image_size}^2 C={C} S={S}: "
         f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
     )
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+
+
+def raster_bwd_phase(model_consts, cfg, verts2d, far, rng) -> dict:
+    """The backward kernel against its plain twin on a random cotangent:
+    normalised error, exact zeros off the canvas, bitwise repeatability."""
+    layout = model_consts.part_layout
+    C, S = layout.num_parts, layout.seg_size
+    rcfg = cfg.raster
+    size = rcfg.image_size
+    g = torch.tensor(rng.randn(RASTER_BATCH, C, size, size).astype(np.float32), device="cuda")
+    errs = []
+    for name, v2 in (("on-canvas", verts2d), ("half off-canvas", far)):
+        vx = raster.gather_class_sorted(v2, layout)
+        vt = vx.transpose(1, 2).contiguous()
+        kern = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
+        again = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
+        twin = raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kern).all()), f"raster backward kernel ({name}) not finite")
+        check(torch.equal(kern, again), f"raster backward kernel ({name}) differs between runs")
+        err = norm_err(kern, twin)
+        check(err <= GRAD_TOL, f"raster backward kernel ({name}) vs twin: normalised err {err}")
+        check(float(kern.abs().max()) > 0, f"raster backward kernel ({name}) is all zero")
+        off = (vx[..., 0] > 4000).unsqueeze(1).expand(-1, 2, -1)  # off canvas, sentinels too
+        check(bool((kern[off] == 0).all()), f"raster backward kernel ({name}): off-canvas slots not 0")
+        errs.append(max_err(kern, twin))
+        print(
+            f"[kernels] raster backward {name}: normalised err {err:.3e} (max |dv| "
+            f"{float(twin.abs().max()):.3f}), {int(off.sum())} off-canvas entries exactly 0, "
+            "repeated run bitwise equal"
+        )
+    vx = raster.gather_class_sorted(verts2d, layout)
+    vt = vx.transpose(1, 2).contiguous()
+    ms = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg), 20)
+    plain_ms = device_ms(lambda: raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg), 2)
+    print(
+        f"[kernels] raster backward B={RASTER_BATCH} {size}^2 C={C} S={S}: "
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
+    )
+    return {"max_abs_err": max(errs)}
 
 
 def request(p, cfg, consts, images):
@@ -284,6 +455,159 @@ def serving_phase(cfg, model, consts, rng, smi) -> dict:
     return launches
 
 
+def training_phase(asset, smi) -> dict:
+    """The config4_full training step on the card; returns what the kernel
+    record needs: launches on the main path, and the raster kernels held
+    against their twins, timed and bounded on that step's own inputs."""
+    cfg = configs.CONFIG4_FULL
+    B, size = cfg.batch_size, cfg.model.image_size
+    ts, consts = train.init_state(cfg, asset=asset, device="cuda")
+    with torch.no_grad():  # keep the seed-0 bodies in frame (see main)
+        ts.model.ief.layers[-1].weight.mul_(0.01)
+    init_model = copy.deepcopy(ts.model)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        train.fused_step(ts, consts, cfg)
+    torch.cuda.synchronize()
+    print(f"[train] config4_full B={B} {size}^2: warm-up of {TRAIN_WARMUP} steps {time.perf_counter() - t0:.2f} s")
+
+    # --- The main path, counted: fused steps (generate a batch, update). ---
+    _build.reset_counts()
+    times, totals = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        terms = train.fused_step(ts, consts, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(terms["total"]))
+    launches = _build.counts()
+    print(f"[train] kernel launches during {TRAIN_STEPS} steps: {launches}")
+    for name, per in PER_STEP.items():
+        check(
+            launches.get(name, 0) == per * TRAIN_STEPS,
+            f"kernel {name} launched {launches.get(name, 0)} times in {TRAIN_STEPS} steps, "
+            f"not {per} per step",
+        )
+    check(all(np.isfinite(totals)), f"non-finite training loss: {totals}")
+    med = statistics.median(times)
+    print(
+        f"[train] median {med:.3f} ms/step ({B / med * 1e3:.1f} img/s), p90 "
+        f"{float(np.percentile(times, 90)):.3f} ms, over {TRAIN_STEPS} steps [{smi}]"
+    )
+
+    # --- One fixed batch: 20 steps from the initial weights lower the loss.
+    batch = train.make_batch(cfg.seed, 10**6, B, consts, cfg)
+    fixed = train.TrainState(copy.deepcopy(init_model), None, 0, cfg.seed)
+    fixed.optimizer = train.make_optimizer(fixed.model, cfg)
+    fixed_loss = [float(train.train_step(fixed, batch, consts, cfg)["total"]) for _ in range(20)]
+    check(fixed_loss[-1] < fixed_loss[0], f"20 steps on one batch did not lower the loss: {fixed_loss}")
+    print(f"[train] 20 steps on one batch: total loss {fixed_loss[0]:.5f} -> {fixed_loss[-1]:.5f}")
+
+    # --- Step 1 with the kernels against the plain twins forced. ----------
+    # The loss terms and the gradients of the leaves after the encoder (IEF,
+    # mean_theta) are held to the tolerances in both steps, and so is every
+    # leaf in the step with the encoder in float32. In bf16 the encoder's
+    # backward rounds each gradient to 8 bits, so tiny differences after the
+    # encoder flip some roundings: there the encoder's leaves are held to
+    # FLOOR_MULTIPLE times the noise floor that the jittered twins' step
+    # shows against the twins' step (JITTER). The floor is printed for both.
+    cfg_t = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, smpl_impl="torch", raster_impl="torch")
+    )
+    enc_f32 = dataclasses.replace(cfg.model.encoder, compute_dtype=torch.float32)
+
+    def step1(c, enc_cfg):
+        m = copy.deepcopy(init_model)
+        m.encoder.cfg = enc_cfg  # the encoder module carries its own config
+        total, t = train.loss_and_metrics(m, consts, batch, c)
+        total.backward()
+        return {k: p.grad for k, p in m.named_parameters()}, {k: float(v.detach()) for k, v in t.items()}
+
+    for label, enc_cfg in (("bf16", cfg.model.encoder), ("float32 encoder", enc_f32)):
+        (gk, tk), (gt, tt) = step1(cfg, enc_cfg), step1(cfg_t, enc_cfg)
+        term_err = max(abs(tk[k] - v) / max(abs(v), 1e-12) for k, v in tt.items())
+        errs = {k: norm_err(gk[k], g) for k, g in gt.items()}
+        head = max(e for k, e in errs.items() if not k.startswith("encoder."))
+        enc_err = max(e for k, e in errs.items() if k.startswith("encoder."))
+        check(term_err <= 1e-4, f"step 1 ({label}), kernels vs twins: loss terms rel err {term_err}")
+        check(head <= 1e-3, f"step 1 ({label}), kernels vs twins: IEF gradients err {head}")
+        floor = 0.0
+        for seed in JITTER_SEEDS:
+            with jittered_render(JITTER, seed):
+                gj, _ = step1(cfg_t, enc_cfg)
+            floor = max(floor, max(norm_err(gj[k], g) for k, g in gt.items() if k.startswith("encoder.")))
+        if label == "bf16":
+            check(floor > 0, "step 1 (bf16): the jittered twins' step equals the twins' step")
+            check(
+                enc_err <= FLOOR_MULTIPLE * floor,
+                f"step 1 ({label}), kernels vs twins: encoder gradients err {enc_err} > "
+                f"{FLOOR_MULTIPLE} x the noise floor {floor}",
+            )
+        else:
+            check(enc_err <= 1e-3, f"step 1 ({label}), kernels vs twins: encoder gradients err {enc_err}")
+        print(
+            f"[train] step 1 ({label}), kernels vs plain twins on one batch: loss terms rel err "
+            f"{term_err:.3e}; gradients normalised per leaf: IEF and mean_theta {head:.3e}, "
+            f"encoder {enc_err:.3e}; noise floor of the encoder's gradients (twins with the "
+            f"pixel vertices jittered by {JITTER:g} relative, worst of {len(JITTER_SEEDS)} draws) {floor:.3e}"
+        )
+
+    # --- The raster kernels on this step's own inputs. ---------------------
+    layout, rcfg = consts.part_layout, cfg.model.raster
+    C, S = layout.num_parts, layout.seg_size
+    m = copy.deepcopy(init_model)
+    out = net.forward_train(m, consts, batch["image"], cfg.model)
+    check(float(out["silhouette"].detach().amax()) > 0.5, "the predicted silhouette has no foreground")
+    targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
+    total, _ = losses.total_loss(out, targets, cfg.loss_weight_dict, size)
+    (g,) = torch.autograd.grad(total, out["score_cp"])
+    g = g.reshape(B, C, size, size).contiguous()
+    vx = raster.gather_class_sorted(out["verts2d"].detach(), layout)
+    vt = vx.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fk = raster_cuda.raster_fwd_cuda(vt, C, S, rcfg)
+        ft = raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch")
+        bk = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
+        bt = raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg)
+    torch.cuda.synchronize()
+    check(not bool(((fk - ft).abs() > TOL + TOL * ft.abs()).any()),
+          f"raster kernel vs twin at B={B}: max abs err {max_err(fk, ft)}")
+    # On the loss's own cotangent the kernels' culling shows: the part-CE
+    # term's cotangent, -1/(P·score of the label), is largest where scores
+    # are tiny, so the Gaussian tails the culled sum leaves out (each below
+    # exp(-18) of its peak) come back multiplied by it. The plain twin sums
+    # every pixel. The reference's Pallas backward culls the same way.
+    b_err = norm_err(bk, bt)
+    check(b_err <= CULL_TOL, f"raster backward kernel vs twin at B={B}, loss cotangent: normalised err {b_err}")
+    check(float(bk.abs().max()) > 0, "raster backward kernel: the step's vertex gradient is all zero")
+    g_rand = torch.randn(g.shape, device=g.device, generator=torch.Generator(g.device).manual_seed(0))
+    with torch.no_grad():
+        r_err = norm_err(
+            raster_cuda.raster_bwd_cuda(vt, g_rand, C, S, rcfg),
+            raster_cuda.raster_scores_bwd_torch(vx, g_rand, C, S, rcfg),
+        )
+    check(r_err <= GRAD_TOL, f"raster backward kernel vs twin at B={B}, random cotangent: normalised err {r_err}")
+    print(
+        f"[train] raster backward kernel vs twin at B={B} on the step's vertices: normalised err "
+        f"{b_err:.3e} on the loss cotangent (|g| up to {float(g.abs().max()):.3g}, median "
+        f"{float(g.abs().median()):.3g}), {r_err:.3e} on a random one"
+    )
+    fwd = {"max_abs_err": max_err(fk, ft), **raster_bound(vx, layout, rcfg, backward=False)}
+    bwd = {"max_abs_err": max_err(bk, bt), **raster_bound(vx, layout, rcfg, backward=True)}
+    with torch.no_grad():
+        fwd["ms"] = device_ms(lambda: raster_cuda.raster_fwd_cuda(vt, C, S, rcfg), 20)
+        fwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch"), 1, reps=3)
+        bwd["ms"] = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg), 20)
+        bwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg), 1, reps=3)
+    for name, r in (("forward", fwd), ("backward", bwd)):
+        print(
+            f"[train] raster {name} on the step's prediction, B={B}: kernel {r['ms']:.4f} ms, "
+            f"twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['pairs']} pairs over real slots; the kernels' boxes hold {r['pairs_in_kernel_boxes']}) [{smi}]"
+        )
+    return {"launches": launches, "raster_fwd": fwd, "raster_bwd": bwd, "ms_per_step": med}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -303,7 +627,7 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     asset = assets.load_asset()
-    cfg = configs.CONFIG4_FULL
+    cfg = configs.CONFIG4_FULL.model
     model, consts = predict.load_model(cfg, asset=asset, seed=0, device="cuda")
     # Untrained BN statistics leave the encoder's features ~13 in magnitude,
     # and with the reference's 1e-3 output-layer init the three IEF steps then
@@ -314,22 +638,30 @@ def main() -> int:
         model.ief.layers[-1].weight.mul_(0.01)
 
     lbs = lbs_phase(asset, rng)
-    ras = raster_phase(consts, asset, cfg, rng)
-    launches = serving_phase(cfg, model, consts, rng, smi)
+    verts2d, far = posed_verts2d(consts, asset, cfg, rng)
+    ras4 = raster_phase(consts, cfg, verts2d, far)
+    bwd4 = raster_bwd_phase(consts, cfg, verts2d, far, rng)
+    serve_launches = serving_phase(cfg, model, consts, rng, smi)
+    tr = training_phase(asset, smi)
 
+    def entry(name, source, replaces, **numbers):
+        return dict(
+            name=name, route="cuda",
+            source=f"indirect_learning_pose_shape_tpu_torch/csrc/{source}",
+            replaces=f"indirect_learning_pose_shape_tpu/ops/kernels/{replaces}",
+            launches=tr["launches"].get(name, 0),
+            launches_serve=serve_launches.get(name, 0),
+            library_ms=None,  # no single PyTorch call computes the same function
+            **numbers,
+        )
+
+    fwd, bwd = tr["raster_fwd"], tr["raster_bwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], ras4["max_abs_err"])
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd4["max_abs_err"])
     kernels = [
-        dict(
-            name=lbs_cuda.KERNEL, route="cuda",
-            source="indirect_learning_pose_shape_tpu_torch/csrc/lbs.cu",
-            replaces="indirect_learning_pose_shape_tpu/ops/kernels/lbs_pallas.py:37",
-            launches=launches.get(lbs_cuda.KERNEL, 0), **lbs,
-        ),
-        dict(
-            name=raster_cuda.KERNEL, route="cuda",
-            source="indirect_learning_pose_shape_tpu_torch/csrc/raster_fwd.cu",
-            replaces="indirect_learning_pose_shape_tpu/ops/kernels/raster_pallas.py:73",
-            launches=launches.get(raster_cuda.KERNEL, 0), **ras,
-        ),
+        entry(lbs_cuda.KERNEL, "lbs.cu", "lbs_pallas.py:37", **lbs, **lbs_bound(consts.smpl, LBS_BATCH)),
+        entry(raster_cuda.KERNEL, "raster_fwd.cu", "raster_pallas.py:73", **fwd),
+        entry(raster_cuda.KERNEL_BWD, "raster_bwd.cu", "raster_pallas.py:103", **bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,7 +2,8 @@
 
 The JAX package ``indirect_learning_pose_shape_tpu`` is the reference; this
 package mirrors its module layout (``models/``, ``ops/``, ``ops/kernels/``,
-``utils/``, ``serve.py``, ``predict.py``, ``configs.py``) and is checked
+``utils/``, ``data/``, ``serve.py``, ``predict.py``, ``train.py``,
+``losses.py``, ``configs.py``) and is checked
 against it module by module. It imports ``torch`` and never ``jax``, and
 nothing of the reference package: the numpy pieces it needs (the SMPL asset,
 the part layout) are copies, tested equal to the reference's.
@@ -15,7 +16,11 @@ wrapper uses for CPU tensors.
 Covered so far: the serving path — ``serve.Predictor`` over
 ``models.network.forward`` (ResNet encoder → IEF → SMPL with the fused LBS
 kernel → weak-perspective projection) plus ``predict.render_silhouette``
-(soft part raster through the raster forward kernel).
+(soft part raster through the raster forward kernel) — and the config-4
+training step, ``train.fused_step`` (on-device synthetic batch →
+``forward_train`` → ``losses.total_loss`` → backward through the raster
+backward kernel → Adam). Entry points run on CUDA unless the caller asks
+for the CPU.
 """
 
 __version__ = "0.1.0"

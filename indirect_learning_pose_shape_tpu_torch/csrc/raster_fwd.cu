@@ -9,7 +9,8 @@
 // over class-sorted vertex slots (class c owns slots [c*S, (c+1)*S)), padding
 // slots at a 1e6 sentinel. A 128-slot block whose bounding box (computed
 // outside, one per block) lies farther than `cutoff` from the pixel tile is
-// skipped whole, the same 6-sigma test as the reference.
+// skipped whole, the same 6-sigma test as the reference (raster_common.cuh,
+// shared with the backward kernel).
 //
 // What bounds it on this card: the exponentials. Every surviving
 // (pixel, slot) pair costs one expf and ~6 FLOPs; memory traffic is only the
@@ -31,11 +32,13 @@
 
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
-constexpr int kTW = 32;   // pixel tile width (one warp row)
-constexpr int kTH = 8;    // pixel tile height
-constexpr int kKV = 128;  // slots per culling block (raster_cuda.KV)
+using ilps_raster::kKV;
+using ilps_raster::kTH;
+using ilps_raster::kTW;
 
 __global__ void __launch_bounds__(kTW * kTH)
 raster_fwd_kernel(const float* __restrict__ verts,  // [B, 2, C*S]
@@ -54,10 +57,6 @@ raster_fwd_kernel(const float* __restrict__ verts,  // [B, 2, C*S]
   const float px = static_cast<float>(x);
   const float py = static_cast<float>(y);
 
-  // Tile extent grown by the cutoff: a slot block overlaps iff its box meets it.
-  const float xlo = x0 - cutoff, xhi = x0 + (kTW - 1) + cutoff;
-  const float ylo = y0 - cutoff, yhi = y0 + (kTH - 1) + cutoff;
-
   const int nb = (S + kKV - 1) / kKV;
   const int N = C * S;
   const float* vxs = verts + (size_t)b * 2 * N;
@@ -69,8 +68,10 @@ raster_fwd_kernel(const float* __restrict__ verts,  // [B, 2, C*S]
     float acc = 0.f;
     for (int j = 0; j < nb; ++j) {
       const float* box = bb + (size_t)(c * nb + j) * 4;
-      const bool hit = box[0] <= xhi && box[1] >= xlo && box[2] <= yhi && box[3] >= ylo;
-      if (!hit) continue;  // uniform across the block
+      // A slot block overlaps iff its box grown by the cutoff meets the tile.
+      if (!(ilps_raster::x_hits(box, x0, cutoff) && ilps_raster::y_hits(box, y0, cutoff))) {
+        continue;  // uniform across the block
+      }
       const int base = c * S + j * kKV;
       const int n = min(kKV, S - j * kKV);
       __syncthreads();  // previous block's slots fully consumed

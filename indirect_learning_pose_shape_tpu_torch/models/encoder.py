@@ -1,4 +1,4 @@
-"""ResNet image encoder, eval path (port of the reference's models/encoder.py).
+"""ResNet image encoder (port of the reference's models/encoder.py).
 
 ResNet-18/34 (basic blocks) and ResNet-50 (bottleneck blocks), with the
 reference's parameter names (`stem`, `bn_stem`, `s{stage}b{block}.conv1 |
@@ -13,10 +13,16 @@ reference has no Pallas kernel in the encoder.
 - Padding is symmetric, (k-1)//2, and max-pool is 3/2 with pad 1 (torch's
   alignment, which the reference also uses).
 - `fold_bn_eval` folds each BatchNorm into its conv (weights scaled in
-  float32, then cast) — the reference's `_conv_bn` eval fusion.
-- BatchNorm here is eval-mode only (running statistics). Training-mode
-  statistics, which follow the reference's biased one-pass variance and
-  momentum convention, come with the training port.
+  float32, then cast) — the reference's `_conv_bn` eval fusion; it applies
+  only when `train=False`.
+- Training-mode BatchNorm (`encoder_apply(..., train=True)`) follows the
+  reference's `_batch_norm`, not `nn.BatchNorm2d`: statistics in one float32
+  pass (mean and mean of squares), the biased variance
+  `max(E[x²] − E[x]², 0)`, running statistics `momentum·old +
+  (1 − momentum)·new`, and the normalization as a float32 per-channel affine
+  applied in the compute dtype. Gradients flow through the batch statistics
+  by autograd of that formula. The reference returns a new state; here the
+  running `mean`/`var` buffers are updated in place.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class EncoderConfig:
     depth: int = 18  # 18, 34 or 50
     width: int = 64  # stem channels
     compute_dtype: torch.dtype = torch.bfloat16
+    bn_momentum: float = 0.9
     bn_eps: float = 1e-5
     fold_bn_eval: bool = False
 
@@ -66,10 +73,29 @@ class BatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
 
-def _conv_bn(x, w, bn: BatchNorm, stride: int, cfg: EncoderConfig) -> torch.Tensor:
-    """conv → eval BatchNorm; one conv with a bias when cfg.fold_bn_eval."""
-    inv, shift = bn.affine(cfg.bn_eps)
+def _batch_norm_train(y: torch.Tensor, bn: BatchNorm, cfg: EncoderConfig) -> torch.Tensor:
+    """Batch statistics (one float32 pass, biased variance); updates the
+    running buffers of `bn` in place."""
+    y32 = y.float()
+    mean = y32.mean(dim=(0, 2, 3))
+    meansq = torch.square(y32).mean(dim=(0, 2, 3))
+    var = torch.clamp_min(meansq - torch.square(mean), 0.0)
+    with torch.no_grad():
+        m = cfg.bn_momentum
+        bn.mean.copy_(m * bn.mean + (1 - m) * mean)
+        bn.var.copy_(m * bn.var + (1 - m) * var)
+    inv = torch.rsqrt(var + cfg.bn_eps) * bn.scale
+    shift = bn.bias - mean * inv
+    return y * inv.to(y.dtype)[:, None, None] + shift.to(y.dtype)[:, None, None]
+
+
+def _conv_bn(x, w, bn: BatchNorm, stride: int, cfg: EncoderConfig, train: bool) -> torch.Tensor:
+    """conv → BatchNorm: batch statistics when `train`, else the running
+    ones, folded into one conv with a bias when cfg.fold_bn_eval."""
     pad = (w.shape[-1] - 1) // 2
+    if train:
+        return _batch_norm_train(F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad), bn, cfg)
+    inv, shift = bn.affine(cfg.bn_eps)
     if cfg.fold_bn_eval:
         w = w * inv[:, None, None, None]
     y = F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad)
@@ -101,16 +127,18 @@ class Block(nn.Module):
             self.proj = _conv_weight(gen, 1, cin, cout)
             self.bn_proj = BatchNorm(cout)
 
-    def run(self, x: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    def run(self, x: torch.Tensor, cfg: EncoderConfig, train: bool) -> torch.Tensor:
         s = self.stride
-        shortcut = _conv_bn(x, self.proj, self.bn_proj, s, cfg) if self.has_proj else x
+        shortcut = (
+            _conv_bn(x, self.proj, self.bn_proj, s, cfg, train) if self.has_proj else x
+        )
         if self.bottleneck:
-            y = F.relu(_conv_bn(x, self.conv1, self.bn1, 1, cfg))
-            y = F.relu(_conv_bn(y, self.conv2, self.bn2, s, cfg))
-            y = _conv_bn(y, self.conv3, self.bn3, 1, cfg)
+            y = F.relu(_conv_bn(x, self.conv1, self.bn1, 1, cfg, train))
+            y = F.relu(_conv_bn(y, self.conv2, self.bn2, s, cfg, train))
+            y = _conv_bn(y, self.conv3, self.bn3, 1, cfg, train)
         else:
-            y = F.relu(_conv_bn(x, self.conv1, self.bn1, s, cfg))
-            y = _conv_bn(y, self.conv2, self.bn2, 1, cfg)
+            y = F.relu(_conv_bn(x, self.conv1, self.bn1, s, cfg, train))
+            y = _conv_bn(y, self.conv2, self.bn2, 1, cfg, train)
         return F.relu(y + shortcut)
 
 
@@ -139,12 +167,20 @@ class Encoder(nn.Module):
                 cin = cout
 
 
-def encoder_apply(enc: Encoder, images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] float32 in [-1, 1] -> features [B, D] float32."""
+def encoder_apply(enc: Encoder, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """images [B, H, W, 3] float32 in [-1, 1] -> features [B, D] float32.
+
+    train=True normalizes with batch statistics and updates the running
+    statistics of every BatchNorm in place.
+    """
     cfg = enc.cfg
     x = images.permute(0, 3, 1, 2).to(cfg.compute_dtype)  # NCHW, channels-last strides
-    x = F.relu(_conv_bn(x, enc.stem, enc.bn_stem, 2, cfg))
+    if not x.is_cuda:
+        # Plain NCHW on the CPU: the CPU backward of a strided 1x1 conv on
+        # channels-last input corrupts memory when run on several threads.
+        x = x.contiguous()
+    x = F.relu(_conv_bn(x, enc.stem, enc.bn_stem, 2, cfg, train))
     x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
     for name in enc.block_names:
-        x = getattr(enc, name).run(x, cfg)
+        x = getattr(enc, name).run(x, cfg, train)
     return torch.mean(x, dim=(2, 3), dtype=torch.float32)

@@ -1,8 +1,10 @@
 """Network assembly (port of models/network.py): encoder → IEF → SMPL →
 projection, plus the soft-raster render of the predicted mesh.
 
-`forward` is the eval inference path; `render_outputs` adds the rendered
-part probabilities and silhouette.
+`forward` is the inference path (`train=True` normalizes with batch
+statistics); `render_outputs` adds the rendered part probabilities and
+silhouette; `forward_train` is the training path, with the score-form
+render the training losses read (`score_cp`, `s_total`, `bg_gamma`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
+from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
 from indirect_learning_pose_shape_tpu_torch.utils.assets import SMPLAsset
 
 
@@ -63,10 +66,12 @@ def init(
     asset: SMPLAsset,
     cfg: ModelConfig,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Model, ModelConsts]:
     """Fresh model from `seed` (one torch.Generator: encoder, then IEF) and
-    its constants, both on `device`. The model is in eval mode."""
+    its constants, both on `device` (the card unless the caller asks for the
+    CPU). The model is in eval mode."""
+    device = device_lib.resolve(device)
     consts = build_consts(asset, cfg, device)
     gen = torch.Generator().manual_seed(seed)
     encoder = enc.Encoder(cfg.encoder, gen)
@@ -76,11 +81,35 @@ def init(
 
 
 def forward(
+    model: Model,
+    consts: ModelConsts,
+    images: torch.Tensor,
+    cfg: ModelConfig,
+    train: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Inference path. images [B, H, W, 3] float32 in [-1, 1] -> outputs.
+
+    train=True uses batch statistics in every BatchNorm and updates the
+    running statistics in place (the reference returns them as new state).
+    """
+    feat = enc.encoder_apply(model.encoder, images, train=train)
+    return head_from_features(model.ief, consts, feat, cfg)
+
+
+def forward_train(
     model: Model, consts: ModelConsts, images: torch.Tensor, cfg: ModelConfig
 ) -> dict[str, torch.Tensor]:
-    """Eval inference path. images [B, H, W, 3] float32 in [-1, 1] -> outputs."""
-    feat = enc.encoder_apply(model.encoder, images)
-    return head_from_features(model.ief, consts, feat, cfg)
+    """Training path: `forward` with batch-statistics BatchNorm (running
+    statistics updated in place), then the score-form render
+    (ops/raster.soft_rasterize_train): outputs + `verts2d`, `silhouette`,
+    `score_cp` [B,C,H*W], `s_total` [B,H*W] and `bg_gamma`."""
+    outputs = forward(model, consts, images, cfg, train=True)
+    verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
+    rendered = raster.soft_rasterize_train(
+        verts2d, consts.part_layout, cfg.raster, impl=cfg.raster_impl
+    )
+    outputs.update(rendered, verts2d=verts2d, bg_gamma=cfg.raster.bg_gamma)
+    return outputs
 
 
 def head_from_features(

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use every ``.cu`` file under the package's ``csrc/`` is compiled by
-one plain ``nvcc`` call into a shared library with a C interface,
+its own plain ``nvcc`` process, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/ilps_torch_kernels/libilps_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o <tmp>/<name>.o csrc/<name>.cu
 
+then linked into one shared library with a C interface
+(``nvcc ... -shared -o build/ilps_torch_kernels/libilps_<hash>.so <tmp>/*.o``)
 and loaded with ``ctypes``. The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused. No
 PyTorch header is included, which keeps the build to seconds.
@@ -39,7 +41,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ilps_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -91,28 +93,42 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libilps_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str], proc: subprocess.Popen) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists."""
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc process per source, in parallel, then one link."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a temporary name and rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        jobs = []
+        for src, obj in zip(_sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+        try:
+            for cmd, proc in jobs:
+                _run(cmd, proc)
+        finally:
+            for _, proc in jobs:  # stop every compiler still running after a failure
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        # Link to a temporary name and rename: a concurrent process never
+        # loads a half-written library.
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs]
+        _run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        os.replace(lib, out)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Soft silhouette / body-part rasterizer, forward (port of ops/raster.py).
+"""Soft silhouette / body-part rasterizer (port of ops/raster.py).
 
     d2[p, v]   = ||pixel_p − vert2d_v||²
     score[p,c] = Σ_{v: part(v)=c} exp(−d2 / 2σ²)
@@ -7,11 +7,17 @@
 
 Vertices are statically permuted so each part is a contiguous segment padded
 to S (`PartLayout`); padding slots sit at a far sentinel, so their Gaussians
-are exactly 0. `raster_scores` has two implementations of the same sum:
-'kernel' (the culled CUDA kernel, ops/kernels/raster_cuda.py, port of the
-Pallas `raster_pallas._fwd_kernel`) and 'torch' (the pairwise, pixel-chunked
-twin of the reference's `impl='xla'` path); 'auto' is the kernel for CUDA
-tensors and the twin for CPU tensors.
+are exactly 0. The gather into that layout is an autograd Function whose
+backward is the inverse-slot gather (the reference's `_gather_sorted_bwd`),
+not the scatter-add autograd of indexing would emit.
+
+`raster_scores` has two implementations of the same sum, both behind the
+autograd Function of ops/kernels/raster_cuda.py: 'kernel' (the culled CUDA
+kernels, ports of the Pallas `raster_pallas._fwd_kernel` / `_bwd_kernel`)
+and 'torch' (the pairwise, pixel-chunked plain versions, twins of the
+reference's `impl='xla'` path); 'auto' is the kernel for CUDA tensors and
+the plain versions for CPU tensors. The reference's default 'separable'
+implementation is not ported yet.
 """
 
 from __future__ import annotations
@@ -97,10 +103,27 @@ def build_part_layout(
     )
 
 
+class _GatherSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, verts2d, layout):
+        ctx.layout = layout
+        g = verts2d[:, layout.perm]
+        return torch.where(layout.valid[None, :, None] > 0, g, _SENTINEL)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # The layout is a padded permutation (each vertex owns exactly one
+        # valid slot), so the transpose of the gather is another gather by
+        # the inverse slot map. Padding slots are masked first, as the
+        # forward's `where` gates them.
+        layout = ctx.layout
+        dm = dy * layout.valid[None, :, None].to(dy.dtype)
+        return dm[:, layout.inv], None
+
+
 def gather_class_sorted(verts2d: torch.Tensor, layout: PartLayout) -> torch.Tensor:
     """[B, V, 2] -> [B, C*S, 2] class-sorted, padding slots at the sentinel."""
-    g = verts2d[:, layout.perm]
-    return torch.where(layout.valid[None, :, None] > 0, g, _SENTINEL)
+    return _GatherSorted.apply(verts2d, layout)
 
 
 def pixel_grid(image_size: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -134,22 +157,34 @@ def pairwise_scores(
     return torch.cat(chunks, dim=1)
 
 
+def raster_scores_cf(
+    verts2d: torch.Tensor,
+    layout: PartLayout,
+    cfg: RasterConfig,
+    impl: str = "auto",
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Per-class scores, channel-first: verts2d [B, V, 2] (pixels) ->
+    [B, C, H, W], the kernel's native layout (no transpose), cast to
+    `out_dtype` when given. Differentiable in verts2d."""
+    from indirect_learning_pose_shape_tpu_torch.ops.kernels import raster_cuda
+
+    if impl == "auto":
+        impl = "kernel" if verts2d.is_cuda else "torch"
+    if impl not in ("kernel", "torch"):
+        raise ValueError(f"raster impl must be 'kernel' | 'torch' | 'auto', got {impl!r}")
+    vx = gather_class_sorted(verts2d, layout)
+    out = raster_cuda.raster_scores4(vx, layout.num_parts, layout.seg_size, cfg, impl=impl)
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
 def raster_scores(
     verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto"
 ) -> torch.Tensor:
     """Per-class Gaussian scores. verts2d [B, V, 2] (pixels) -> [B, H*W, C]."""
-    if impl == "auto":
-        impl = "kernel" if verts2d.is_cuda else "torch"
-    vx = gather_class_sorted(verts2d, layout)
-    if impl == "kernel":
-        from indirect_learning_pose_shape_tpu_torch.ops.kernels.raster_cuda import (
-            raster_scores_fwd,
-        )
-
-        return raster_scores_fwd(vx, layout.num_parts, layout.seg_size, cfg)
-    if impl == "torch":
-        return pairwise_scores(vx, layout.num_parts, layout.seg_size, cfg)
-    raise ValueError(f"raster impl must be 'kernel' | 'torch' | 'auto', got {impl!r}")
+    B = verts2d.shape[0]
+    score = raster_scores_cf(verts2d, layout, cfg, impl=impl)
+    return score.reshape(B, layout.num_parts, -1).transpose(1, 2)
 
 
 def soft_rasterize(
@@ -166,3 +201,21 @@ def soft_rasterize(
     )
     sil = (s_total / denom).reshape(B, size, size)
     return {"probs": probs, "silhouette": sil}
+
+
+def soft_rasterize_train(
+    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto"
+) -> dict[str, torch.Tensor]:
+    """Score-form rasterization for the training losses: the normalized
+    [B, H, W, C+1] probabilities are never built (losses.part_seg_ce_scores
+    folds the normalization into per-pixel scalars).
+
+    Returns score_cp [B, C, H*W] float32 raw class scores (channel-first),
+    s_total [B, H*W] = Σ_c score (float32), silhouette [B, H, W].
+    """
+    B = verts2d.shape[0]
+    size, C = cfg.image_size, cfg.num_parts
+    score_cp = raster_scores_cf(verts2d, layout, cfg, impl=impl).reshape(B, C, size * size)
+    s_total = torch.sum(score_cp, dim=1, dtype=torch.float32)
+    sil = (s_total / (cfg.bg_gamma + s_total)).reshape(B, size, size)
+    return {"score_cp": score_cp, "s_total": s_total, "silhouette": sil}

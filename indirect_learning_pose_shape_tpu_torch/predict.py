@@ -24,10 +24,11 @@ def load_model(
     params_npz: Optional[str] = None,
     asset=None,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[net.Model, net.ModelConsts]:
-    """(model, consts) on `device`: a fresh init from `seed`, overwritten by
-    the weights in `params_npz` when given (strict key and shape check)."""
+    """(model, consts) on `device` (the card unless the caller asks for the
+    CPU; raises without one): a fresh init from `seed`, overwritten by the
+    weights in `params_npz` when given (strict key and shape check)."""
     asset = asset if asset is not None else assets_lib.load_asset()
     model, consts = net.init(asset, cfg, seed=seed, device=device)
     if params_npz:

@@ -39,6 +39,7 @@ import torch
 
 CATEGORIES = (
     ("raster kernel", ("raster_fwd_kernel",)),
+    ("raster bwd kernel", ("raster_bwd_kernel",)),
     ("lbs kernel", ("lbs_forward_kernel",)),
     ("H2D copy", ("Memcpy HtoD",)),
     ("conv/gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass")),
@@ -60,7 +61,7 @@ def _request(p, cfg, consts, images):
     return predict.render_silhouette(p(images), consts, cfg)
 
 
-def _wall_ms(fn, reps: int) -> list[float]:
+def wall_ms(fn, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -68,6 +69,35 @@ def _wall_ms(fn, reps: int) -> list[float]:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def device_summary(prof, per: int) -> dict:
+    """Device items of a `torch.profiler` run over `per` units (requests or
+    steps), per unit: `device_ms`, `by_category_ms`, `kernels` (device
+    kernel and copy launches) and the eight largest items [ms, name, launches]."""
+    totals: dict[str, list] = {}  # name -> [device us, launches]
+    for e in prof.events():
+        # Device items only; a range annotated on the host (for example
+        # `Optimizer.step#Adam.step`) is mirrored on the device timeline as a
+        # user annotation that spans other kernels, and is not counted.
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        if e.self_device_time_total <= 0:
+            continue
+        t = totals.setdefault(e.name, [0.0, 0])
+        t[0] += e.self_device_time_total
+        t[1] += 1
+    items = [(us / 1e3 / per, name, n / per) for name, (us, n) in totals.items()]
+    by_cat: dict[str, float] = {}
+    for ms, name, _ in items:
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
+    items.sort(reverse=True)
+    return {
+        "device_ms": sum(ms for ms, _, _ in items),
+        "by_category_ms": by_cat,
+        "kernels": sum(n for _, _, n in items),
+        "top": [[ms, name[:80], n] for ms, name, n in items[:8]],
+    }
 
 
 def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
@@ -78,8 +108,8 @@ def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
 
     req()
     torch.cuda.synchronize()
-    full = _wall_ms(req, timed)
-    fwd = _wall_ms(lambda: p(images), timed)
+    full = wall_ms(req, timed)
+    fwd = wall_ms(lambda: p(images), timed)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -88,27 +118,26 @@ def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / profiled
 
-    items = []  # (ms per request, name, launches per request)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        items.append((e.self_device_time_total / 1e3 / profiled, e.key, e.count / profiled))
-    device = sum(ms for ms, _, _ in items)
-    by_cat: dict[str, float] = {}
-    for ms, name, _ in items:
-        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
-    items.sort(reverse=True)
+    dev = device_summary(prof, profiled)
     return {
         "request_ms_median": statistics.median(full),
         "request_ms_p90": float(np.percentile(full, 90)),
         "forward_ms_median": statistics.median(fwd),
         "profiled_wall_ms": wall,
-        "device_ms": device,
-        "device_busy_share": device / wall,
-        "by_category_ms": by_cat,
-        "kernels_per_request": sum(n for _, _, n in items),
-        "top": [[ms, name[:80], n] for ms, name, n in items[:8]],
+        "device_ms": dev["device_ms"],
+        "device_busy_share": dev["device_ms"] / wall,
+        "by_category_ms": dev["by_category_ms"],
+        "kernels_per_request": dev["kernels"],
+        "top": dev["top"],
     }
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as `nvidia-smi` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -126,11 +155,8 @@ def main(argv=None) -> int:
     from indirect_learning_pose_shape_tpu_torch import configs, predict, serve
     from indirect_learning_pose_shape_tpu_torch.utils import assets
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    cfg = configs.PRESETS[args.preset]
+    smi = smi_line()
+    cfg = configs.PRESETS[args.preset].model
     model, consts = predict.load_model(cfg, asset=assets.load_asset(), seed=0, device="cuda")
     with torch.no_grad():
         model.ief.layers[-1].weight.mul_(0.01)

@@ -144,3 +144,54 @@ def test_convert_layouts_and_strict_keys():
         convert.load_state_arrays(model, missing)
     with pytest.raises(RuntimeError, match="Unexpected key"):
         convert.load_state_arrays(model, {**sd, "encoder.extra": np.zeros(1, np.float32)})
+
+
+def test_encoder_train_bn_matches_jax():
+    """Training-mode BatchNorm over two calls of the ResNet-18 encoder:
+    features, the gradients of every parameter (through the batch
+    statistics) and the running statistics, which the reference returns and
+    the port updates in place."""
+    depth = 18
+    jcfg, params, state = _jax_encoder(depth, True, jnp.float32, seed=5)
+    x1, x2 = _images(batch=3, seed=11), _images(batch=3, seed=12)
+    r = np.random.RandomState(13).randn(3, jcfg.feature_dim).astype(np.float32)
+
+    def jloss(p, s, im):
+        feat, new_s = jenc.encoder_apply(p, s, im, jcfg, train=True)
+        return jnp.sum(feat * r), (feat, new_s)
+
+    step = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+    (_, (ref1, s1)), grads = step(params, state, x1)
+    (_, (ref2, s2)), _ = step(params, s1, x2)
+
+    model = _port_encoder(depth, True, torch.float32, params, state)
+    model.train()
+    out1 = enc.encoder_apply(model, torch.from_numpy(x1), train=True)
+    (out1 * torch.from_numpy(r)).sum().backward()
+    got_s1 = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        out2 = enc.encoder_apply(model, torch.from_numpy(x2), train=True)
+
+    np.testing.assert_allclose(out1.detach().numpy(), np.asarray(ref1), atol=1e-5)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(ref2), atol=1e-5)
+    empty_ief = {"layers": [], "mean_theta": []}
+    for ref_s, got in ((s1, got_s1), (s2, model.state_dict())):
+        want = convert.jax_to_state_dict(
+            {"encoder": params, "ief": empty_ief}, {"encoder": jax.tree.map(np.asarray, ref_s)}
+        )
+        for k, v in want.items():
+            if k.endswith((".mean", ".var")):
+                np.testing.assert_allclose(
+                    got[k[len("encoder."):]].numpy(), v, atol=1e-5, err_msg=k
+                )
+    # Gradients at 5e-5 after normalising per leaf, not 1e-5: the BN backward
+    # subtracts batch means of the upstream gradient, and at the last stage's
+    # 2x2 maps (12 values a channel at batch 3) that cancellation leaves
+    # float32 reduction-order noise of ~1.6e-5 between the frameworks.
+    want_g = convert.jax_to_state_dict(
+        {"encoder": jax.tree.map(np.asarray, grads), "ief": empty_ief}, {"encoder": state}
+    )
+    for name, p in model.named_parameters():
+        g = want_g[f"encoder.{name}"]
+        scale = float(np.abs(g).max()) + 1e-12
+        np.testing.assert_allclose(p.grad.numpy() / scale, g / scale, atol=5e-5, err_msg=name)

@@ -73,12 +73,21 @@ def test_soft_rasterize_matches_jax(rng):
 
 
 def test_kernel_wrapper_refuses_gradients(rng):
+    """The kernel wrapper is differentiable now (the raster backward kernel's
+    autograd Function): float32 slots get the plain twin's gradient, and it
+    refuses the inputs the kernels do not take, with or without a gradient."""
     v, _, (tl, tcfg) = _setup(rng, batch=1, size=32)
     vt = torch.from_numpy(v).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        raster.raster_scores(vt, tl, tcfg, impl="kernel")
-    with torch.no_grad():
-        raster.raster_scores(vt, tl, tcfg, impl="kernel")
+    out = raster.raster_scores(vt, tl, tcfg, impl="kernel")
+    (got,) = torch.autograd.grad(out.sum(), vt)
+    vt2 = torch.from_numpy(v).requires_grad_(True)
+    (want,) = torch.autograd.grad(raster.raster_scores(vt2, tl, tcfg, impl="torch").sum(), vt2)
+    assert torch.equal(got, want) and got.abs().max() > 0
+    vx64 = raster.gather_class_sorted(vt.double(), tl)
+    with pytest.raises(ValueError, match="expected float32"):
+        raster_cuda.raster_scores4(vx64, tl.num_parts, tl.seg_size, tcfg)
+    with torch.no_grad(), pytest.raises(ValueError, match="expected float32"):
+        raster_cuda.raster_scores4(vx64, tl.num_parts, tl.seg_size, tcfg)
 
 
 @pytest.mark.parametrize("seg_size", [128, 200])

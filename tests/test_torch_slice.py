@@ -78,7 +78,7 @@ def reference(tiny_asset):
 def test_slice_matches_jax(tiny_asset, reference, impl):
     params, state, images, ref = reference
     cfg = _port_cfg(smpl_impl=impl, raster_impl=impl)
-    model, consts = net.init(tiny_asset, cfg, seed=1)
+    model, consts = net.init(tiny_asset, cfg, seed=1, device="cpu")
     convert.load_jax_params(model, params, state)
     p = serve.Predictor(cfg, model, consts, buckets=(4,))
     out = p(images)
@@ -92,7 +92,7 @@ def test_slice_matches_jax(tiny_asset, reference, impl):
 
 def test_predictor_bucketing(tiny_asset):
     cfg = _port_cfg()
-    model, consts = net.init(tiny_asset, cfg, seed=0)
+    model, consts = net.init(tiny_asset, cfg, seed=0, device="cpu")
     p = serve.Predictor(cfg, model, consts, buckets=(2, 4, 8))
     assert p.bucket_for(1) == 2 and p.bucket_for(3) == 4 and p.bucket_for(8) == 8
     with pytest.raises(ValueError, match="exceeds largest bucket"):
@@ -109,7 +109,7 @@ def test_predictor_bucketing(tiny_asset):
 
 def test_kernel_counters_stay_zero_on_cpu(tiny_asset):
     cfg = _port_cfg(smpl_impl="kernel", raster_impl="kernel")
-    model, consts = net.init(tiny_asset, cfg, seed=0)
+    model, consts = net.init(tiny_asset, cfg, seed=0, device="cpu")
     _build.reset_counts()
     out = predict.predict(model, consts, torch.zeros(1, SIZE, SIZE, 3), cfg)
     predict.render_silhouette(out, consts, cfg)
@@ -121,30 +121,37 @@ def test_load_model_from_npz(tiny_asset, reference, tmp_path):
     path = tmp_path / "weights.npz"
     np.savez(path, **convert.jax_to_state_dict(params, state))
     cfg = _port_cfg()
-    model, consts = predict.load_model(cfg, str(path), asset=tiny_asset)
+    model, consts = predict.load_model(cfg, str(path), asset=tiny_asset, device="cpu")
     out = predict.predict(model, consts, torch.from_numpy(images), cfg)
     np.testing.assert_allclose(out["theta"].numpy(), ref["theta"], atol=1e-4)
     bad = dataclasses.replace(cfg, ief=ief.IEFConfig(hidden_dims=(64,)))
     with pytest.raises(RuntimeError, match="size mismatch"):
-        predict.load_model(bad, str(path), asset=tiny_asset)
+        predict.load_model(bad, str(path), asset=tiny_asset, device="cpu")
 
 
 def test_port_imports_no_jax():
+    """The port's modules, serving and a training step on the CPU, import
+    neither jax nor the JAX package."""
     code = (
-        "import sys, torch\n"
-        "from indirect_learning_pose_shape_tpu_torch import configs, predict, serve\n"
+        "import dataclasses, sys, torch\n"
+        "from indirect_learning_pose_shape_tpu_torch import configs, losses, predict, serve, train\n"
+        "from indirect_learning_pose_shape_tpu_torch.data import synthetic\n"
         "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network\n"
         "from indirect_learning_pose_shape_tpu_torch.ops import raster\n"
         "from indirect_learning_pose_shape_tpu_torch.ops.kernels import lbs_cuda, raster_cuda\n"
-        "from indirect_learning_pose_shape_tpu_torch.tools import profile_serve\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import profile_serve, profile_train\n"
         "from indirect_learning_pose_shape_tpu_torch.utils.assets import synthetic_asset\n"
         "cfg = network.ModelConfig(image_size=64,\n"
         "    encoder=encoder.EncoderConfig(width=8), ief=ief.IEFConfig(hidden_dims=(16,)),\n"
         "    raster=raster.RasterConfig(image_size=64))\n"
-        "model, consts = network.init(synthetic_asset(num_verts=300, seed=2), cfg)\n"
+        "asset = synthetic_asset(num_verts=300, seed=2)\n"
+        "model, consts = network.init(asset, cfg, device='cpu')\n"
         "out = serve.Predictor(cfg, model, consts)(torch.zeros(2, 64, 64, 3))\n"
         "sil = predict.render_silhouette(out, consts, cfg)['silhouette']\n"
         "assert sil.shape == (2, 64, 64)\n"
+        "tcfg = dataclasses.replace(configs.CONFIG4_FULL, model=cfg, batch_size=2)\n"
+        "_, terms = train.fit(tcfg, num_steps=1, asset=asset, device='cpu')\n"
+        "assert terms['total'] > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'indirect_learning_pose_shape_tpu' not in sys.modules\n"
     )
