@@ -12,11 +12,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. Kernels against their plain twins, on the card: the fused LBS kernel at
    B=32 on the SMPL-sized asset (forward, and the gradient through its
    autograd Function); the raster forward kernel at B=4, 256², 24 parts x
-   384 slots (plus a case with half the vertices 5000 px off canvas); the
-   raster backward kernel at B=4 with a random cotangent: normalised error,
-   exact zeros for off-canvas slots, bitwise-equal repeated runs. Prints
-   each kernel's and twin's device time: each call captured in a CUDA
-   graph and replayed, so no host launch cost is in the number.
+   384 slots (plus a case with half the vertices 5000 px off canvas, and
+   one on a ragged 199² canvas), against the exact twin and the culled
+   plain version; the raster backward
+   kernel at B=4 with a random cotangent: normalised error against both,
+   exact zeros for padding and off-canvas slots, bitwise-equal repeated
+   runs. Prints each kernel's and twin's device time: each call captured in
+   a CUDA graph and replayed, so no host launch cost is in the number.
 4. Serving: a `Predictor` on the full-width config4_full model (ResNet-18
    bf16, IEF, SMPL, seed-0 weights) with both forward kernels on (`auto`),
    warmed up, answers requests of batch 1, 3, 8 and 32 and renders each
@@ -36,13 +38,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the same step with the plain twins forced (with the bf16 encoder, its
    leaves within a small multiple of the noise floor that the twins' step
    shows when its pixel vertices are jittered by a few float32 ulps); and
-   the raster kernels are held against their twins and timed on that
-   step's own inputs (the predicted vertices and the loss's cotangent of
-   the scores).
+   the raster kernels are held against the exact twins and the culled plain
+   versions and timed on that step's own inputs (the predicted vertices,
+   the loss's cotangent of the scores and a random one), beside the
+   reference's separable formulation in torch (the yardstick), with their
+   bound recounted from the step's data (`raster_bound`).
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the training main path,
-its time and its plain twin's at the training path's shapes, and its bound),
+its time, its plain twin's and, for the raster kernels, the separable
+yardstick's at the training path's shapes, and its bound),
 the `nvidia-smi` name/power-limit line and {"ok": true, "device": {...}}.
 """
 
@@ -71,8 +76,11 @@ from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 REQUESTS = (1, 3, 8, 32)
 LBS_BATCH = 32
 RASTER_BATCH = 4
+RAGGED_SIZE = 199
 TOL = 1e-4
-GRAD_TOL = 2e-5  # raster gradient, after normalising by its largest entry
+# A raster kernel against a plain version (the gradient, and either kernel
+# against the culled plain version), after normalising by the largest entry.
+GRAD_TOL = 2e-5
 # The same on the training loss's own cotangent, where the culled tails are
 # not negligible (see training_phase): 3.3e-4 measured on an H100.
 CULL_TOL = 2e-3
@@ -95,6 +103,7 @@ PER_STEP = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 2, raster_cuda.KERNEL_BWD: 1
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 EXP_PER_S = 16 * 132 * 1.98e9
+FMA_PER_S = FP32_FLOP_PER_S / 2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -129,6 +138,26 @@ def device_ms(fn, replays: int, reps: int = 5) -> float:
         times.append(e0.elapsed_time(e1) / replays)
     del graph
     torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def events_ms(fn, iters: int, reps: int = 3) -> float:
+    """Device ms per call of `fn` between CUDA events, median over `reps`
+    runs of `iters` calls, for work that cannot be captured in a graph (an
+    autograd backward). The calls are queued back to back, so the host's
+    launches hide behind device work of a millisecond or more."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / iters)
     return statistics.median(times)
 
 
@@ -169,50 +198,83 @@ def lbs_bound(consts, B: int) -> dict:
     return bound(nbytes, flops / FP32_FLOP_PER_S)
 
 
-def raster_pairs(vx: torch.Tensor, layout, rcfg, kernel_boxes: bool = False) -> int:
-    """(pixel, slot) pairs the culled raster needs on this data: each real
-    slot against the pixels inside its 128-slot block's box over real slots,
-    grown by the cutoff and clipped to the canvas. The sentinel padding
-    slots are left out: their exponentials are exactly 0.
+def raster_work(vx: torch.Tensor, layout, rcfg) -> dict:
+    """What the culled raster function needs on this data, counted in plain
+    torch over real slots, each in its 128-slot block's box over real slots
+    grown by the cutoff and clipped to the canvas:
 
-    kernel_boxes=True counts instead what the kernels compute: every slot,
-    padding included, in the kernels' own boxes, which the padding stretches
-    to the canvas edge in a partly filled block."""
-    C, S = layout.num_parts, layout.seg_size
-    B = vx.shape[0]
-    nb = -(-S // raster_cuda.KV)
-    v = vx.transpose(1, 2).reshape(B, 2, C, S).double()
-    valid = layout.valid.reshape(C, S) > 0
-    if nb * raster_cuda.KV != S:
-        v = torch.nn.functional.pad(v, (0, nb * raster_cuda.KV - S), value=float("nan"))
-        valid = torch.nn.functional.pad(valid, (0, nb * raster_cuda.KV - S))
-    v = v.reshape(B, 2, C * nb, raster_cuda.KV)
-    keep = ~torch.isnan(v[0, 0]) if kernel_boxes else valid.reshape(C * nb, raster_cuda.KV)
-    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
-    lo = torch.where(keep, v, inf).amin(-1)
-    hi = torch.where(keep, v, -inf).amax(-1)
-    cut, last = rcfg.cutoff_sigmas * rcfg.sigma, rcfg.image_size - 1
-    n0 = (torch.clamp(torch.floor(hi + cut), max=last)
-          - torch.clamp(torch.ceil(lo - cut), min=0) + 1).clamp(min=0)  # [B, 2, blocks]
-    npx = n0[:, 0] * n0[:, 1]
-    slots = keep.sum(-1).to(v.dtype)  # [blocks]
-    return int(torch.nan_to_num(npx * slots, nan=0.0).sum())
+    - pairs: (pixel, slot) pairs, each real slot against its box's pixels;
+    - exps: each real slot's box columns + rows (the separable factors);
+    - g_pixels: the pixels inside the union of each class's boxes, the part
+      of the cotangent the backward has to read;
+    - pairs_in_kernel_boxes: what the kernels compute instead, each real
+      slot against the 32x8 tiles its block passes the culling test for."""
+    C, S, H = layout.num_parts, layout.seg_size, rcfg.image_size
+    B, nb = vx.shape[0], -(-S // raster_cuda.KV)
+    cut = rcfg.cutoff_sigmas * rcfg.sigma
+    box = raster_cuda.block_bboxes(vx.transpose(1, 2).contiguous(), layout.real, C, S)
+    first = torch.arange(nb, device=vx.device) * raster_cuda.KV
+    n_real = (layout.real[:, None] - first).clamp(0, raster_cuda.KV).reshape(-1).double()
+    b = box.double()
+    lo = torch.clamp(torch.ceil(b[..., 0::2] - cut), min=0)  # [B, blocks, (x, y)]
+    hi = torch.clamp(torch.floor(b[..., 1::2] + cut), max=H - 1)
+    extent = (hi - lo + 1).clamp(min=0)
+    pairs = float((extent[..., 0] * extent[..., 1] * n_real).sum())
+    exps = float((extent.sum(-1) * n_real).sum())
+
+    xh, yh = raster_cuda.tile_hits(box, H, H, cut)
+    tw = (H - torch.arange(0, H, raster_cuda.TW, device=vx.device)).clamp(max=raster_cuda.TW)
+    th = (H - torch.arange(0, H, raster_cuda.TH, device=vx.device)).clamp(max=raster_cuda.TH)
+    kpx = (xh * tw).sum(-1).double() * (yh * th).sum(-1).double()
+    kernel_pairs = float((kpx * n_real).sum())
+
+    r = torch.arange(H, device=vx.device, dtype=torch.float64)
+    lo, hi = lo.reshape(B, C, nb, 2), hi.reshape(B, C, nb, 2)
+    inside = torch.zeros(B, C, H, H, dtype=torch.bool, device=vx.device)
+    for j in range(nb):
+        xm = (r >= lo[:, :, j, 0:1]) & (r <= hi[:, :, j, 0:1])  # [B, C, W]
+        ym = (r >= lo[:, :, j, 1:2]) & (r <= hi[:, :, j, 1:2])  # [B, C, H]
+        inside |= ym[..., :, None] & xm[..., None, :]
+    return {
+        "pairs": int(pairs), "pairs_in_kernel_boxes": int(kernel_pairs),
+        "exps": int(exps), "g_pixels": int(inside.sum()),
+    }
 
 
-def raster_bound(vx: torch.Tensor, layout, rcfg, backward: bool) -> dict:
-    """Bytes: the slots and boxes read once, the scores written once
-    (forward) or the cotangent read once and the slot gradient written once
-    (backward). Operations: one exponential per pair the data needs
-    (`raster_pairs`)."""
+def raster_bound(vx: torch.Tensor, layout, rcfg, work: dict, backward: bool) -> dict:
+    """The least time of the culled raster function on this data (`work`,
+    from `raster_work`), whatever the design: the largest of
+    - bytes: the slots read once, and the scores written once (forward) or
+      the cotangent inside the boxes read once and the slot gradient
+      written once (backward), at HBM rate;
+    - exponentials: the separable factors, at the SFU rate;
+    - FMAs: 1 per pair (forward) or 2 (backward), at the float32 rate.
+    `bound_ms_exp_per_pair` is the earlier figure of one exponential per
+    pair, printed beside it to show why the bound moved."""
     B, N, _ = vx.shape
     C, H = layout.num_parts, rcfg.image_size
-    boxes = B * C * (-(-layout.seg_size // raster_cuda.KV)) * 4
-    nbytes = 4 * (2 * B * N + boxes + B * C * H * H + (2 * B * N if backward else 0))
-    pairs = raster_pairs(vx, layout, rcfg)
-    out = bound(nbytes, pairs / EXP_PER_S)
-    out["pairs"] = pairs
-    out["pairs_in_kernel_boxes"] = raster_pairs(vx, layout, rcfg, kernel_boxes=True)
-    return out
+    moved = 2 * B * N + work["g_pixels"] if backward else B * C * H * H
+    t_exp = work["exps"] / EXP_PER_S
+    t_fma = (2 if backward else 1) * work["pairs"] / FMA_PER_S
+    out = bound(4 * (2 * B * N + moved), max(t_exp, t_fma))
+    out["ops_bound_by"] = "exponentials" if t_exp >= t_fma else "fma"
+    out["bound_ms_exp_per_pair"] = work["pairs"] / EXP_PER_S * 1e3
+    return {**out, **work}
+
+
+def separable_scores(vx: torch.Tensor, num_parts: int, seg_size: int, rcfg) -> torch.Tensor:
+    """The yardstick for both raster kernels: the reference's default
+    `impl='separable'` formulation (ops/raster.py `_raster_scores_separable`)
+    in torch, unculled: two exponential factor tables [B, C, S, W] and
+    [B, C, S, H], then one float32 `torch.bmm` to [B, C, H, W]. Timed here
+    only; the port never calls it."""
+    B, size = vx.shape[0], rcfg.image_size
+    v = vx.reshape(B, num_parts, seg_size, 2)
+    r = torch.arange(size, dtype=vx.dtype, device=vx.device)
+    inv2s2 = 1.0 / (2.0 * rcfg.sigma * rcfg.sigma)
+    fx = torch.exp(-torch.square(r - v[..., 0:1]) * inv2s2).reshape(-1, seg_size, size)
+    fy = torch.exp(-torch.square(r - v[..., 1:2]) * inv2s2).reshape(-1, seg_size, size)
+    return torch.bmm(fy.transpose(1, 2), fx).reshape(B, num_parts, size, size)
 
 
 @contextlib.contextmanager
@@ -295,26 +357,42 @@ def posed_verts2d(model_consts, asset, cfg, rng):
     return verts2d, far
 
 
+def raster_cases(rcfg, verts2d, far):
+    """(name, vertices, raster config) of the B=4 kernel checks: the posed
+    bodies, the same with half the vertices off canvas, and the posed bodies
+    on a ragged 199² canvas (odd width, no tile or region divides it)."""
+    ragged = dataclasses.replace(rcfg, image_size=RAGGED_SIZE)
+    return (("on-canvas", verts2d, rcfg), ("half off-canvas", far, rcfg),
+            (f"{RAGGED_SIZE}^2 canvas", verts2d, ragged))
+
+
 def raster_phase(model_consts, cfg, verts2d, far) -> dict:
     layout = model_consts.part_layout
     C, S = layout.num_parts, layout.seg_size
     rcfg = cfg.raster
+    real = layout.real
     errs = []
-    for name, v2 in (("on-canvas", verts2d), ("half off-canvas", far)):
+    for name, v2, rc in raster_cases(rcfg, verts2d, far):
         vx = raster.gather_class_sorted(v2, layout)
-        kern = raster_cuda.raster_scores4(vx, C, S, rcfg)
-        twin = raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch")
+        kern = raster_cuda.raster_scores4(vx, real, C, S, rc)
+        twin = raster_cuda.raster_scores4(vx, real, C, S, rc, impl="torch")
+        culled = raster_cuda.raster_scores_culled_torch(vx, real, C, S, rc)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kern).all()), f"raster kernel ({name}) not finite")
         bad = (kern - twin).abs() > TOL + TOL * twin.abs()
         err = max_err(kern, twin)
         check(not bool(bad.any()), f"raster kernel ({name}) vs twin: max abs err {err}")
+        c_err = norm_err(kern, culled)
+        check(c_err <= GRAD_TOL, f"raster kernel ({name}) vs culled plain version: normalised err {c_err}")
         errs.append(err)
-        print(f"[kernels] raster {name}: max abs err {err:.3e} (max score {float(twin.max()):.2f})")
+        print(
+            f"[kernels] raster {name}: max abs err {err:.3e} against the exact twin (max score "
+            f"{float(twin.max()):.2f}), normalised {c_err:.3e} against the culled plain version"
+        )
 
     vx = raster.gather_class_sorted(verts2d, layout)
-    ms = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg), 20)
-    plain_ms = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch"), 2)
+    ms = device_ms(lambda: raster_cuda.raster_scores4(vx, real, C, S, rcfg), 20)
+    plain_ms = device_ms(lambda: raster_cuda.raster_scores4(vx, real, C, S, rcfg, impl="torch"), 2)
     print(
         f"[kernels] raster B={RASTER_BATCH} {rcfg.image_size}^2 C={C} S={S}: "
         f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
@@ -323,37 +401,42 @@ def raster_phase(model_consts, cfg, verts2d, far) -> dict:
 
 
 def raster_bwd_phase(model_consts, cfg, verts2d, far, rng) -> dict:
-    """The backward kernel against its plain twin on a random cotangent:
-    normalised error, exact zeros off the canvas, bitwise repeatability."""
+    """The backward kernel against the exact and the culled plain versions
+    on a random cotangent: normalised error, exact zeros for padding and
+    off-canvas slots, bitwise repeatability."""
     layout = model_consts.part_layout
-    C, S = layout.num_parts, layout.seg_size
+    C, S, real = layout.num_parts, layout.seg_size, layout.real
     rcfg = cfg.raster
     size = rcfg.image_size
     g = torch.tensor(rng.randn(RASTER_BATCH, C, size, size).astype(np.float32), device="cuda")
     errs = []
-    for name, v2 in (("on-canvas", verts2d), ("half off-canvas", far)):
+    for name, v2, rc in raster_cases(rcfg, verts2d, far):
         vx = raster.gather_class_sorted(v2, layout)
         vt = vx.transpose(1, 2).contiguous()
-        kern = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
-        again = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
-        twin = raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg)
+        gc = g[:, :, : rc.image_size, : rc.image_size].contiguous()
+        kern = raster_cuda.raster_bwd_cuda(vt, gc, real, C, S, rc)
+        again = raster_cuda.raster_bwd_cuda(vt, gc, real, C, S, rc)
+        twin = raster_cuda.raster_scores_bwd_torch(vx, gc, C, S, rc)
+        culled = raster_cuda.raster_scores_bwd_culled_torch(vx, gc, real, C, S, rc)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kern).all()), f"raster backward kernel ({name}) not finite")
         check(torch.equal(kern, again), f"raster backward kernel ({name}) differs between runs")
         err = norm_err(kern, twin)
         check(err <= GRAD_TOL, f"raster backward kernel ({name}) vs twin: normalised err {err}")
+        c_err = norm_err(kern, culled)
+        check(c_err <= GRAD_TOL, f"raster backward kernel ({name}) vs culled plain version: normalised err {c_err}")
         check(float(kern.abs().max()) > 0, f"raster backward kernel ({name}) is all zero")
-        off = (vx[..., 0] > 4000).unsqueeze(1).expand(-1, 2, -1)  # off canvas, sentinels too
+        off = (vx[..., 0] > 4000).unsqueeze(1).expand(-1, 2, -1)  # off canvas, padding too
         check(bool((kern[off] == 0).all()), f"raster backward kernel ({name}): off-canvas slots not 0")
         errs.append(max_err(kern, twin))
         print(
-            f"[kernels] raster backward {name}: normalised err {err:.3e} (max |dv| "
-            f"{float(twin.abs().max()):.3f}), {int(off.sum())} off-canvas entries exactly 0, "
-            "repeated run bitwise equal"
+            f"[kernels] raster backward {name}: normalised err {err:.3e} against the exact twin, "
+            f"{c_err:.3e} against the culled plain version (max |dv| {float(twin.abs().max()):.3f}), "
+            f"{int(off.sum())} off-canvas and padding entries exactly 0, repeated run bitwise equal"
         )
     vx = raster.gather_class_sorted(verts2d, layout)
     vt = vx.transpose(1, 2).contiguous()
-    ms = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg), 20)
+    ms = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg), 20)
     plain_ms = device_ms(lambda: raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg), 2)
     print(
         f"[kernels] raster backward B={RASTER_BATCH} {size}^2 C={C} S={S}: "
@@ -554,7 +637,7 @@ def training_phase(asset, smi) -> dict:
 
     # --- The raster kernels on this step's own inputs. ---------------------
     layout, rcfg = consts.part_layout, cfg.model.raster
-    C, S = layout.num_parts, layout.seg_size
+    C, S, real = layout.num_parts, layout.seg_size, layout.real
     m = copy.deepcopy(init_model)
     out = net.forward_train(m, consts, batch["image"], cfg.model)
     check(float(out["silhouette"].detach().amax()) > 0.5, "the predicted silhouette has no foreground")
@@ -562,48 +645,78 @@ def training_phase(asset, smi) -> dict:
     total, _ = losses.total_loss(out, targets, cfg.loss_weight_dict, size)
     (g,) = torch.autograd.grad(total, out["score_cp"])
     g = g.reshape(B, C, size, size).contiguous()
+    g_rand = torch.randn(g.shape, device=g.device, generator=torch.Generator(g.device).manual_seed(0))
     vx = raster.gather_class_sorted(out["verts2d"].detach(), layout)
     vt = vx.transpose(1, 2).contiguous()
     with torch.no_grad():
-        fk = raster_cuda.raster_fwd_cuda(vt, C, S, rcfg)
-        ft = raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch")
-        bk = raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg)
-        bt = raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg)
+        fk = raster_cuda.raster_fwd_cuda(vt, real, C, S, rcfg)
+        ft = raster_cuda.raster_scores4(vx, real, C, S, rcfg, impl="torch")
+        fc = raster_cuda.raster_scores_culled_torch(vx, real, C, S, rcfg)
+        bk = {"loss": raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg),
+              "random": raster_cuda.raster_bwd_cuda(vt, g_rand, real, C, S, rcfg)}
+        bt = {"loss": raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg),
+              "random": raster_cuda.raster_scores_bwd_torch(vx, g_rand, C, S, rcfg)}
+        bc = {"loss": raster_cuda.raster_scores_bwd_culled_torch(vx, g, real, C, S, rcfg),
+              "random": raster_cuda.raster_scores_bwd_culled_torch(vx, g_rand, real, C, S, rcfg)}
     torch.cuda.synchronize()
     check(not bool(((fk - ft).abs() > TOL + TOL * ft.abs()).any()),
           f"raster kernel vs twin at B={B}: max abs err {max_err(fk, ft)}")
-    # On the loss's own cotangent the kernels' culling shows: the part-CE
-    # term's cotangent, -1/(P·score of the label), is largest where scores
-    # are tiny, so the Gaussian tails the culled sum leaves out (each below
-    # exp(-18) of its peak) come back multiplied by it. The plain twin sums
-    # every pixel. The reference's Pallas backward culls the same way.
-    b_err = norm_err(bk, bt)
-    check(b_err <= CULL_TOL, f"raster backward kernel vs twin at B={B}, loss cotangent: normalised err {b_err}")
-    check(float(bk.abs().max()) > 0, "raster backward kernel: the step's vertex gradient is all zero")
-    g_rand = torch.randn(g.shape, device=g.device, generator=torch.Generator(g.device).manual_seed(0))
-    with torch.no_grad():
-        r_err = norm_err(
-            raster_cuda.raster_bwd_cuda(vt, g_rand, C, S, rcfg),
-            raster_cuda.raster_scores_bwd_torch(vx, g_rand, C, S, rcfg),
-        )
-    check(r_err <= GRAD_TOL, f"raster backward kernel vs twin at B={B}, random cotangent: normalised err {r_err}")
+    f_cerr = norm_err(fk, fc)
+    check(f_cerr <= GRAD_TOL, f"raster kernel vs culled plain version at B={B}: normalised err {f_cerr}")
     print(
-        f"[train] raster backward kernel vs twin at B={B} on the step's vertices: normalised err "
-        f"{b_err:.3e} on the loss cotangent (|g| up to {float(g.abs().max()):.3g}, median "
-        f"{float(g.abs().median()):.3g}), {r_err:.3e} on a random one"
+        f"[train] raster forward kernel at B={B} on the step's vertices: max abs err "
+        f"{max_err(fk, ft):.3e} against the exact twin, normalised {f_cerr:.3e} against the culled "
+        f"plain version; the culling's own error (culled vs exact) {max_err(fc, ft):.3e} max abs"
     )
-    fwd = {"max_abs_err": max_err(fk, ft), **raster_bound(vx, layout, rcfg, backward=False)}
-    bwd = {"max_abs_err": max_err(bk, bt), **raster_bound(vx, layout, rcfg, backward=True)}
+    # Each kernel is held to the culled plain version, the function it
+    # computes, on both cotangents. On the loss's own cotangent the culling
+    # itself shows against the exact twin: the part-CE term's cotangent,
+    # -1/(P·score of the label), is largest where scores are tiny, so the
+    # Gaussian tails the culled sum leaves out (each below exp(-18) of its
+    # peak) come back multiplied by it. The reference's Pallas backward
+    # culls the same way (its boxes keep the padding).
+    for name in ("loss", "random"):
+        k_c, k_t, c_t = norm_err(bk[name], bc[name]), norm_err(bk[name], bt[name]), norm_err(bc[name], bt[name])
+        check(k_c <= GRAD_TOL, f"raster backward kernel vs culled plain version at B={B}, {name} cotangent: {k_c}")
+        exact_tol = CULL_TOL if name == "loss" else GRAD_TOL
+        check(k_t <= exact_tol, f"raster backward kernel vs twin at B={B}, {name} cotangent: normalised err {k_t}")
+        check(c_t <= CULL_TOL, f"culled plain version vs twin at B={B}, {name} cotangent: normalised err {c_t}")
+        check(float(bk[name].abs().max()) > 0, f"raster backward kernel: the {name} cotangent's gradient is all zero")
+        print(
+            f"[train] raster backward kernel at B={B}, {name} cotangent: normalised err {k_c:.3e} "
+            f"against the culled plain version, {k_t:.3e} against the exact twin; the culling's own "
+            f"error (culled vs exact) {c_t:.3e}"
+        )
+    print(f"[train] loss cotangent |g| up to {float(g.abs().max()):.3g}, median {float(g.abs().median()):.3g}")
+
+    work = raster_work(vx, layout, rcfg)
+    fwd = {"max_abs_err": max_err(fk, ft), **raster_bound(vx, layout, rcfg, work, backward=False)}
+    bwd = {"max_abs_err": max_err(bk["loss"], bt["loss"]), **raster_bound(vx, layout, rcfg, work, backward=True)}
     with torch.no_grad():
-        fwd["ms"] = device_ms(lambda: raster_cuda.raster_fwd_cuda(vt, C, S, rcfg), 20)
-        fwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores4(vx, C, S, rcfg, impl="torch"), 1, reps=3)
-        bwd["ms"] = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, C, S, rcfg), 20)
+        fwd["ms"] = device_ms(lambda: raster_cuda.raster_fwd_cuda(vt, real, C, S, rcfg), 20)
+        fwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores4(vx, real, C, S, rcfg, impl="torch"), 1, reps=3)
+        bwd["ms"] = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg), 20)
         bwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg), 1, reps=3)
+        fwd["library_ms"] = device_ms(lambda: separable_scores(vx, C, S, rcfg), 10)
+        sep_f = separable_scores(vx, C, S, rcfg)
+    v_req = vx.detach().clone().requires_grad_(True)
+    sep = separable_scores(v_req, C, S, rcfg)
+    bwd["library_ms"] = events_ms(lambda: torch.autograd.grad(sep, v_req, g, retain_graph=True), 10)
+    (sep_b,) = torch.autograd.grad(sep, v_req, g)
+    del sep
+    print(
+        f"[train] separable torch yardstick at B={B}: forward max abs err {max_err(sep_f, ft):.3e} "
+        f"against the exact twin, backward (loss cotangent) normalised "
+        f"{norm_err(sep_b.transpose(1, 2), bt['loss']):.3e}"
+    )
     for name, r in (("forward", fwd), ("backward", bwd)):
         print(
             f"[train] raster {name} on the step's prediction, B={B}: kernel {r['ms']:.4f} ms, "
-            f"twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['pairs']} pairs over real slots; the kernels' boxes hold {r['pairs_in_kernel_boxes']}) [{smi}]"
+            f"separable torch {r['library_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; operations by {r['ops_bound_by']}; one exp per "
+            f"pair would read {r['bound_ms_exp_per_pair']:.4f} ms); pairs: {r['pairs']} needed, "
+            f"{r['pairs_in_kernel_boxes']} computed ({r['pairs_in_kernel_boxes'] / r['pairs']:.2f}x); "
+            f"{r['exps']} factor exponentials, {r['g_pixels']} cotangent pixels inside the boxes [{smi}]"
         )
     return {"launches": launches, "raster_fwd": fwd, "raster_bwd": bwd, "ms_per_step": med}
 
@@ -651,8 +764,7 @@ def main() -> int:
             replaces=f"indirect_learning_pose_shape_tpu/ops/kernels/{replaces}",
             launches=tr["launches"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
-            library_ms=None,  # no single PyTorch call computes the same function
-            **numbers,
+            **{"library_ms": None, **numbers},
         )
 
     fwd, bwd = tr["raster_fwd"], tr["raster_bwd"]

@@ -51,12 +51,14 @@ class PartLayout:
     perm  [C*S] int64: vertex index feeding slot i (padding repeats index 0),
     valid [C*S] float32: 1 for real slots, 0 for padding,
     inv   [V]   int64: the valid slot holding vertex v,
+    real  [C]   int32: real slots per class; they come first in its segment,
     seg_size S: per-class segment length (padded to a 128 multiple).
     """
 
     perm: torch.Tensor
     valid: torch.Tensor
     inv: torch.Tensor
+    real: torch.Tensor
     num_parts: int
     seg_size: int
 
@@ -98,6 +100,7 @@ def build_part_layout(
         perm=torch.as_tensor(flat_perm, dtype=torch.long, device=device),
         valid=torch.as_tensor(flat_valid, device=device),
         inv=torch.as_tensor(inv, dtype=torch.long, device=device),
+        real=torch.as_tensor(counts, dtype=torch.int32, device=device),
         num_parts=num_parts,
         seg_size=seg,
     )
@@ -134,12 +137,14 @@ def pixel_grid(image_size: int, dtype=torch.float32, device="cpu") -> torch.Tens
 
 
 def pairwise_scores(
-    vx: torch.Tensor, num_parts: int, seg_size: int, cfg: RasterConfig
+    vx: torch.Tensor, num_parts: int, seg_size: int, cfg: RasterConfig, keep=None
 ) -> torch.Tensor:
     """Plain twin of the raster kernel: every pixel against every slot.
 
     vx [B, C*S, 2] class-sorted (sentinel-padded) -> scores [B, H*W, C].
     Pixels go in chunks so the [B, chunk, C*S] temporaries stay bounded.
+    `keep(i, j)`, when given, is a [B, j - i, C*S] bool mask of the pairs
+    of pixels i..j-1 that are summed (raster_cuda's culled plain version).
     """
     B, N, _ = vx.shape
     C, S = num_parts, seg_size
@@ -153,6 +158,8 @@ def pairwise_scores(
         dx = p[None, :, None, 0] - vxx
         dy = p[None, :, None, 1] - vyy
         e = torch.exp(-(dx * dx + dy * dy) * inv_two_sigma2)
+        if keep is not None:
+            e = torch.where(keep(i, i + p.shape[0]), e, 0.0)
         chunks.append(e.reshape(B, p.shape[0], C, S).sum(dim=-1))
     return torch.cat(chunks, dim=1)
 
@@ -174,7 +181,9 @@ def raster_scores_cf(
     if impl not in ("kernel", "torch"):
         raise ValueError(f"raster impl must be 'kernel' | 'torch' | 'auto', got {impl!r}")
     vx = gather_class_sorted(verts2d, layout)
-    out = raster_cuda.raster_scores4(vx, layout.num_parts, layout.seg_size, cfg, impl=impl)
+    out = raster_cuda.raster_scores4(
+        vx, layout.real, layout.num_parts, layout.seg_size, cfg, impl=impl
+    )
     return out.to(out_dtype) if out_dtype is not None else out
 
 

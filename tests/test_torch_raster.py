@@ -62,6 +62,11 @@ def test_build_part_layout_matches_jax(tiny_asset, with_positions):
     assert t.seg_size == j.seg_size and t.num_parts == j.num_parts
     for f in ("perm", "valid", "inv"):
         np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)), err_msg=f)
+    # Real slots come first in each class, `real` of them.
+    valid = t.valid.reshape(24, t.seg_size).numpy()
+    real = t.real.numpy()
+    assert t.real.dtype == torch.int32
+    np.testing.assert_array_equal(valid, np.arange(t.seg_size)[None, :] < real[:, None])
 
 
 def test_soft_rasterize_matches_jax(rng):
@@ -85,25 +90,80 @@ def test_kernel_wrapper_refuses_gradients(rng):
     assert torch.equal(got, want) and got.abs().max() > 0
     vx64 = raster.gather_class_sorted(vt.double(), tl)
     with pytest.raises(ValueError, match="expected float32"):
-        raster_cuda.raster_scores4(vx64, tl.num_parts, tl.seg_size, tcfg)
+        raster_cuda.raster_scores4(vx64, tl.real, tl.num_parts, tl.seg_size, tcfg)
     with torch.no_grad(), pytest.raises(ValueError, match="expected float32"):
-        raster_cuda.raster_scores4(vx64, tl.num_parts, tl.seg_size, tcfg)
+        raster_cuda.raster_scores4(vx64, tl.real, tl.num_parts, tl.seg_size, tcfg)
 
 
 @pytest.mark.parametrize("seg_size", [128, 200])
 def test_block_bboxes(seg_size):
-    """Per-(class, 128-slot block) boxes, a partial last block included."""
+    """Per-(class, 128-slot block) boxes over real slots: a full class, a
+    class whose real slots end inside a block (sentinel padding after them),
+    and an all-padding class; with S=200 a partial last block too. A block
+    without a real slot gets an empty box that fails every tile test."""
     rng = np.random.RandomState(5)
     C, B = 3, 2
-    v = rng.randn(B, 2, C * seg_size).astype(np.float32)
-    box = raster_cuda.block_bboxes(torch.from_numpy(v), C, seg_size).numpy()
+    real = np.array([seg_size, seg_size - 100, 0], np.int32)
+    v = (rng.rand(B, 2, C, seg_size) * 64).astype(np.float32)
+    v[..., np.arange(seg_size)[None, :] >= real[:, None]] = 1e6  # sentinel padding
+    v = v.reshape(B, 2, C * seg_size)
+    box = raster_cuda.block_bboxes(torch.from_numpy(v), torch.from_numpy(real), C, seg_size).numpy()
     nb = -(-seg_size // raster_cuda.KV)
     assert box.shape == (B, C * nb, 4)
+    xh, yh = raster_cuda.tile_hits(torch.from_numpy(box), 64, 64, 12.0)
+    empty = 0
     for c in range(C):
         for j in range(nb):
-            s = v[:, :, c * seg_size + j * 128 : c * seg_size + min(seg_size, (j + 1) * 128)]
+            lo, hi = c * seg_size + j * 128, c * seg_size + min(real[c], (j + 1) * 128)
+            if hi <= lo:
+                empty += 1
+                np.testing.assert_array_equal(box[:, c * nb + j], [[np.inf, -np.inf, np.inf, -np.inf]] * B)
+                assert not (xh[:, c * nb + j].any() or yh[:, c * nb + j].any())
+                continue
+            s = v[:, :, lo:hi]
             want = np.stack([s[:, 0].min(1), s[:, 0].max(1), s[:, 1].min(1), s[:, 1].max(1)], 1)
             np.testing.assert_array_equal(box[:, c * nb + j], want)
+            assert xh[:, c * nb + j].any() and yh[:, c * nb + j].any()
+    assert empty == (nb if seg_size == 128 else 2 * nb - 1)
+
+
+def test_culled_version_matches_jax_pallas(rng):
+    """The plain culled forward (the port's kernels' function: 32x8 tiles,
+    boxes over real slots) against the reference's Pallas kernel in
+    interpret mode (16x128 tiles, boxes with the padding): they differ only
+    by Gaussian tails below exp(-18)."""
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    ref = np.asarray(jraster.raster_scores_cf(jnp.asarray(v), jl, jcfg, impl="pallas"))
+    vx = raster.gather_class_sorted(torch.from_numpy(v), tl)
+    got = raster_cuda.raster_scores_culled_torch(vx, tl.real, tl.num_parts, tl.seg_size, tcfg)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_real_slot_boxes_cull_where_padding_boxes_reach():
+    """A class with 10 real slots near x=17 and 118 padding slots at the
+    sentinel: the reference's box (padding included) reaches the tile at
+    x=32, the box over real slots does not (x=19.5 < 32 - 12). There the
+    culled version reads exactly 0, the exact twin a Gaussian tail."""
+    rng = np.random.RandomState(8)
+    size, C = 64, 2
+    labels = np.r_[np.zeros(10, int), np.ones(40, int)]
+    tl = raster.build_part_layout(labels, C)
+    cfg = raster.RasterConfig(image_size=size, num_parts=C, sigma=2.0)
+    v = np.c_[rng.uniform(15.0, 19.5, 50), rng.uniform(5.0, 10.0, 50)].astype(np.float32)
+    v[:10, 0] = np.linspace(15.0, 19.5, 10)
+    vx = raster.gather_class_sorted(torch.from_numpy(v)[None], tl)
+    S = tl.seg_size
+    vt = vx.transpose(1, 2).contiguous()
+    padded_box = raster_cuda.block_bboxes(vt, torch.full((C,), S, dtype=torch.int32), C, S)
+    real_box = raster_cuda.block_bboxes(vt, tl.real, C, S)
+    assert raster_cuda.tile_hits(padded_box, size, size, 12.0)[0][0, 0, 1]
+    assert not raster_cuda.tile_hits(real_box, size, size, 12.0)[0][0, 0, 1]
+
+    culled = raster_cuda.raster_scores_culled_torch(vx, tl.real, C, S, cfg)[0, 0]
+    exact = raster_cuda.raster_scores4(vx, tl.real, C, S, cfg, impl="torch")[0, 0]
+    assert torch.all(culled[:, 32:] == 0)
+    assert 0 < float(exact[:, 32:].max()) < 1e-6
+    np.testing.assert_allclose(culled[:, :32].numpy(), exact[:, :32].numpy(), atol=1e-6)
 
 
 def test_camera_matches_jax():

@@ -85,6 +85,54 @@ def test_plain_backward_equals_autograd_of_plain_forward(seg_size):
     assert torch.all(got.transpose(1, 2)[:, ::7] == 0)
 
 
+def test_culled_gradient_matches_jax_pallas(rng):
+    """The plain culled backward (the port's kernels' function) against the
+    reference's Pallas backward in interpret mode on a random cotangent."""
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    C, S, size = tl.num_parts, tl.seg_size, tcfg.image_size
+    g = rng.randn(1, C, size, size).astype(np.float32)
+    ref = np.asarray(jax.grad(
+        lambda x: jnp.sum(jraster.raster_scores_cf(x, jl, jcfg, impl="pallas") * g)
+    )(jnp.asarray(v)))
+    x = torch.from_numpy(v).requires_grad_(True)
+    vx = raster.gather_class_sorted(x, tl)
+    dv = raster_cuda.raster_scores_bwd_culled_torch(
+        vx.detach(), torch.from_numpy(g), tl.real, C, S, tcfg
+    )
+    (got,) = torch.autograd.grad(vx, x, grad_outputs=dv.transpose(1, 2))
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy() / scale, ref / scale, atol=2e-5)
+
+
+@pytest.mark.parametrize("seg_size", [128, 200])
+def test_culled_backward_equals_autograd_of_culled_forward(seg_size):
+    """raster_scores_bwd_culled_torch is the gradient of
+    raster_scores_culled_torch (same pairs), with a ragged slot count,
+    padding slots at the sentinel and a class without real slots; padding
+    gets exactly 0 and so do real slots far off the canvas."""
+    rng = np.random.RandomState(9)
+    B, C, size = 2, 3, 48
+    cfg = raster.RasterConfig(image_size=size, num_parts=C, sigma=2.0)
+    real = torch.tensor([seg_size, seg_size - 90, 0], dtype=torch.int32)
+    vx = (rng.rand(B, C, seg_size, 2) * size * 1.4 - 0.2 * size).astype(np.float32)
+    vx[:, 0, :5] = 5000.0  # real slots off canvas
+    pad = np.arange(seg_size)[None, :] >= real.numpy()[:, None]
+    vx[:, pad] = 1e6
+    vx = vx.reshape(B, C * seg_size, 2)
+    g = torch.from_numpy(rng.randn(B, C, size, size).astype(np.float32))
+    x = torch.from_numpy(vx).requires_grad_(True)
+    out = raster_cuda.raster_scores_culled_torch(x, real, C, seg_size, cfg)
+    (want,) = torch.autograd.grad(out, x, grad_outputs=g)
+    got = raster_cuda.raster_scores_bwd_culled_torch(torch.from_numpy(vx), g, real, C, seg_size, cfg)
+    scale = float(want.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(got.transpose(1, 2).numpy() / scale, want.numpy() / scale, atol=1e-5)
+    zero = pad.reshape(-1).copy()
+    zero[:5] = True
+    assert torch.all(got[:, :, torch.from_numpy(zero)] == 0)
+
+
 def test_gather_backward_matches_jax(tiny_asset):
     """The gather's backward is the inverse-slot gather of the reference's
     `_gather_sorted_bwd`; padding slots feed nothing back."""
@@ -139,9 +187,11 @@ def test_backward_wrapper_checks_layout(rng):
     C, S, size = tl.num_parts, tl.seg_size, tcfg.image_size
     g = torch.randn(2, size, size, C).permute(0, 3, 1, 2)  # [B, C, H, W] view, strided
     with pytest.raises(ValueError, match="contiguous float32"):
-        raster_cuda.raster_bwd_cuda(vt, g, C, S, tcfg)
+        raster_cuda.raster_bwd_cuda(vt, g, tl.real, C, S, tcfg)
     with pytest.raises(ValueError, match="contiguous float32"):
-        raster_cuda.raster_bwd_cuda(vt, g.contiguous()[:, :-1], C, S, tcfg)
+        raster_cuda.raster_bwd_cuda(vt, g.contiguous()[:, :-1], tl.real, C, S, tcfg)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        raster_cuda.raster_bwd_cuda(vt, g.contiguous(), tl.real.long(), C, S, tcfg)
     # Through the Function, the strided cotangent of the [B, H*W, C] view works.
     x = torch.from_numpy(v).requires_grad_(True)
     out = raster.raster_scores(x, tl, tcfg, impl="kernel")
