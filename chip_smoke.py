@@ -9,9 +9,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    turned off for float32 matmuls and convolutions.
 2. Build: compiles csrc/*.cu with nvcc, one process per source in parallel
    (ops/kernels/_build.py), and prints the build time.
-3. Kernels against their plain twins, on the card: the fused LBS kernel at
-   B=32 on the SMPL-sized asset (forward, and the gradient through its
-   autograd Function); the raster forward kernel at B=4, 256², 24 parts x
+3. Kernels against their plain twins, on the card: the fused LBS kernel on
+   the SMPL-sized asset at B = 1, 8, 32, 64 and 128 (the serving buckets and
+   the training batch; 64 is the bucket that reaches the plan's 4-items-
+   per-thread tile), with and without the residuals: each output it
+   writes against the plain version, a repeated launch bitwise equal, the
+   gradient through its autograd Function, its time warm (graph replay,
+   basis in L2) and cold (after an L2-flushing write, whose own time is
+   subtracted) beside its bound and one float32 blend GEMM as a yardstick;
+   the raster forward kernel at B=4, 256², 24 parts x
    384 slots (plus a case with half the vertices 5000 px off canvas, and
    one on a ragged 199² canvas), against the exact twin and the culled
    plain version; the raster backward
@@ -47,7 +53,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the training main path,
 its time, its plain twin's and, for the raster kernels, the separable
-yardstick's at the training path's shapes, and its bound),
+yardstick's at the training path's shapes, and its bound; the LBS entry
+adds `by_batch`, its warm and cold times, bound and blend GEMM at each
+batch of LBS_BATCHES with and without the residuals),
 the `nvidia-smi` name/power-limit line and {"ok": true, "device": {...}}.
 """
 
@@ -70,11 +78,18 @@ from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
 from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import smi_line
+from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms
 from indirect_learning_pose_shape_tpu_torch.utils import assets
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 REQUESTS = (1, 3, 8, 32)
-LBS_BATCH = 32
+# The serving buckets and the training batch, one of each items-per-thread
+# tile of the launch plan (ipt 1, 1, 2, 4, 8).
+LBS_BATCHES = (1, 8, 32, 64, 128)
+LBS_BATCH = 32  # the training forward's batch: the kernel record's `ms`
+# LBS calls per captured graph: a call at B=1 is shorter than a replay's
+# host cost.
+LBS_CALLS = 10
 RASTER_BATCH = 4
 RAGGED_SIZE = 199
 TOL = 1e-4
@@ -109,36 +124,6 @@ FMA_PER_S = FP32_FLOP_PER_S / 2
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def device_ms(fn, replays: int, reps: int = 5) -> float:
-    """Device ms per call of `fn`: one call captured in a CUDA graph, the
-    graph replayed `replays` times between CUDA events, median over `reps`
-    such runs. A replay carries no host work (no wrapper, no launch), so this
-    is the device time of everything `fn` launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture, as CUDA graphs require
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(replays):
-            graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / replays)
-    del graph
-    torch.cuda.empty_cache()
-    return statistics.median(times)
 
 
 def events_ms(fn, iters: int, reps: int = 3) -> float:
@@ -185,16 +170,18 @@ def bound(nbytes: float, seconds_of_ops: float) -> dict:
     }
 
 
-def lbs_bound(consts, B: int) -> dict:
-    """Each input read once (bases, betas, pose features, rel) and each
-    output written once (verts, v_posed, T); 2 FLOPs per multiply-add."""
-    Vp, J = consts.num_verts_padded, consts.num_joints
+def lbs_bound(consts, B: int, residuals: bool = True) -> dict:
+    """What the function needs over the V real vertices, none of the
+    layouts' padding: each input read once (the 3 + 3·Kb + 3·Kp + J basis
+    rows it uses, betas, pose features, rel) and each output written once
+    (verts, and v_posed and T with the residuals); 2 FLOPs per multiply-add."""
+    V, J = consts.num_verts, consts.num_joints
     Kb, Kp = consts.num_betas, (J - 1) * 9
     nbytes = 4 * (
-        consts.v_template_p.numel() + consts.shapedirs_p.numel() + consts.posedirs_p.numel()
-        + consts.weights_p.numel() + B * (Kb + Kp + J * 12) + B * Vp * (3 + 3 + 12)
+        (3 + 3 * Kb + 3 * Kp + J) * V + B * (Kb + Kp + J * 12)
+        + B * V * (3 + (3 + 12 if residuals else 0))
     )
-    flops = 2 * B * Vp * (3 * Kb + 3 * Kp + 12 * J + 9)
+    flops = 2 * B * V * (3 * Kb + 3 * Kp + 12 * J + 9)
     return bound(nbytes, flops / FP32_FLOP_PER_S)
 
 
@@ -301,44 +288,105 @@ def norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return max_err(a, b) / (float(b.abs().max()) + 1e-12)
 
 
-def lbs_phase(asset, rng) -> dict:
-    consts = smpl.smpl_consts(asset, device="cuda")
-    pose = torch.tensor(rng.randn(LBS_BATCH, 72).astype(np.float32) * 0.4, device="cuda")
-    betas = torch.tensor(rng.randn(LBS_BATCH, 10).astype(np.float32), device="cuda")
-    # The kernel's inputs exactly as smpl_forward_rotmats builds them.
-    rotmats = smpl.batch_rodrigues(pose.reshape(LBS_BATCH, 24, 3))
-    pose_feat = (rotmats[:, 1:] - torch.eye(3, device="cuda")).reshape(LBS_BATCH, -1)
-    v_shaped = consts.v_template + (betas @ consts.shapedirs_flat).reshape(LBS_BATCH, -1, 3)
+def lbs_inputs(consts, B: int, rng):
+    """pose, betas and the kernel's inputs exactly as smpl_forward_rotmats
+    builds them (betas, pose features, rigid rows)."""
+    pose = torch.tensor(rng.randn(B, 72).astype(np.float32) * 0.4, device="cuda")
+    betas = torch.tensor(rng.randn(B, 10).astype(np.float32), device="cuda")
+    rotmats = smpl.batch_rodrigues(pose.reshape(B, 24, 3))
+    pose_feat = (rotmats[:, 1:] - torch.eye(3, device="cuda")).reshape(B, -1)
+    v_shaped = consts.v_template + (betas @ consts.shapedirs_flat).reshape(B, -1, 3)
     joints_rest = torch.einsum("jv,bvi->bji", consts.J_regressor, v_shaped)
     _, rel = smpl.rigid_transform_chain(rotmats, joints_rest, consts.parents)
+    return pose, betas, pose_feat, rel
 
-    kern = lbs_cuda.fused_blend_lbs(consts, betas, pose_feat, rel)
-    twin = smpl._lbs_torch(consts, betas, pose_feat, rel)
-    torch.cuda.synchronize()
-    err = max_err(kern, twin)
-    check(bool(torch.isfinite(kern).all()), "lbs kernel output not finite")
-    check(err <= TOL, f"lbs kernel vs twin max abs err {err} > {TOL}")
 
-    # Gradient of the autograd Function vs autograd of the twin.
-    grads = {}
-    for impl in ("kernel", "torch"):
-        p = pose.clone().requires_grad_(True)
-        b = betas.clone().requires_grad_(True)
-        v = smpl.smpl_forward(consts, p, b, impl=impl)["verts"]
-        grads[impl] = torch.autograd.grad((v * v).sum(), (p, b))
-    grad_err = 0.0
-    for gk, gt in zip(grads["kernel"], grads["torch"]):
-        scale = float(gt.abs().max()) + 1e-9
-        grad_err = max(grad_err, max_err(gk, gt) / scale)
-    check(grad_err <= TOL, f"lbs gradient (normalised) err {grad_err} > {TOL}")
+def blend_gemm(consts, betas, pose_feat):
+    """The yardstick for the blend alone: the zero-padded coefficients
+    [B, kbp + kpp] times the basis [kbp + kpp, 3·Vp] as one float32
+    `torch.matmul` (TF32 off). Timed here only; the port never calls it."""
+    Vp = consts.num_verts_padded
+    kbp, kpp = consts.shapedirs_p.shape[0] // 3, consts.posedirs_p.shape[0] // 3
+    basis = torch.cat(
+        [consts.shapedirs_p.reshape(3, kbp, Vp), consts.posedirs_p.reshape(3, kpp, Vp)], dim=1
+    ).transpose(0, 1).reshape(kbp + kpp, 3 * Vp).contiguous()
+    coef = torch.cat([
+        torch.nn.functional.pad(betas, (0, kbp - betas.shape[1])),
+        torch.nn.functional.pad(pose_feat, (0, kpp - pose_feat.shape[1])),
+    ], dim=1)
+    return lambda: torch.matmul(coef, basis)
 
-    ms = device_ms(lambda: lbs_cuda.lbs_planar(consts, betas, pose_feat, rel), 50)
-    plain_ms = device_ms(lambda: smpl._lbs_torch(consts, betas, pose_feat, rel), 50)
-    print(
-        f"[kernels] lbs B={LBS_BATCH} V={consts.num_verts}: max abs err {err:.3e}, "
-        f"normalised grad err {grad_err:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
-    )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+def lbs_phase(asset, rng, smi) -> dict:
+    """The LBS kernel at each batch of LBS_BATCHES, with and without the
+    residuals. Returns the kernel record's numbers: `ms`, `plain_ms` and the
+    bound at LBS_BATCH with residuals (the training forward's launch), the
+    largest error, and every point under `by_batch`."""
+    consts = smpl.smpl_consts(asset, device="cuda")
+    timer = ColdTimer(replays=20, calls=LBS_CALLS)
+    print(f"[kernels] lbs: L2 flush, a {timer.nbytes >> 20} MB write, {timer.flush_ms:.4f} ms alone")
+    points, worst = [], 0.0
+    for B in LBS_BATCHES:
+        pose, betas, pose_feat, rel = lbs_inputs(consts, B, rng)
+        want = lbs_cuda.lbs_planar_torch(consts, betas, pose_feat, rel)
+        for residuals in (True, False):
+            got = lbs_cuda.lbs_planar(consts, betas, pose_feat, rel, residuals)
+            again = lbs_cuda.lbs_planar(consts, betas, pose_feat, rel, residuals)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, a, w in zip(("verts", "v_posed", "T"), got, again, want):
+                if not residuals and name != "verts":
+                    check(g is None, f"lbs kernel B={B} without residuals wrote {name}")
+                    continue
+                check(bool(torch.isfinite(g).all()), f"lbs kernel B={B} {name} not finite")
+                check(torch.equal(g, a), f"lbs kernel B={B} residuals={residuals}: {name} differs between runs")
+                errs[name] = max_err(g, w)
+                check(errs[name] <= TOL, f"lbs kernel B={B} residuals={residuals}: {name} max abs err {errs[name]} > {TOL}")
+            worst = max(worst, *errs.values())
+
+            def run(res=residuals):
+                return lbs_cuda.lbs_planar(consts, betas, pose_feat, rel, res)
+
+            ms, cold_ms = timer.warm_ms(run), timer.cold_ms(run)
+            pt = {"B": B, "residuals": residuals, "ms": ms, "cold_ms": cold_ms,
+                  **lbs_bound(consts, B, residuals), "max_abs_err": max(errs.values())}
+            points.append(pt)
+            print(
+                f"[kernels] lbs B={B} residuals={residuals}: max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; repeated launch bitwise equal; warm {ms:.4f} ms, cold {cold_ms:.4f} ms; "
+                f"bound {pt['bound_ms']:.4f} ms ({pt['bound_by']}) [{smi}]"
+            )
+
+        # Gradient of the autograd Function vs autograd of the twin.
+        grads = {}
+        for impl in ("kernel", "torch"):
+            p = pose.clone().requires_grad_(True)
+            b = betas.clone().requires_grad_(True)
+            v = smpl.smpl_forward(consts, p, b, impl=impl)["verts"]
+            grads[impl] = torch.autograd.grad((v * v).sum(), (p, b))
+        grad_err = 0.0
+        for gk, gt in zip(grads["kernel"], grads["torch"]):
+            scale = float(gt.abs().max()) + 1e-9
+            grad_err = max(grad_err, max_err(gk, gt) / scale)
+        check(grad_err <= TOL, f"lbs gradient at B={B} (normalised) err {grad_err} > {TOL}")
+
+        gemm_ms = timer.warm_ms(blend_gemm(consts, betas, pose_feat))
+        plain_ms = device_ms(lambda: lbs_cuda.lbs_planar_torch(consts, betas, pose_feat, rel), 20)
+        for pt in points[-2:]:
+            pt.update(blend_gemm_ms=gemm_ms, plain_ms=plain_ms, grad_err=grad_err)
+        print(
+            f"[kernels] lbs B={B}: normalised grad err {grad_err:.3e}; plain twin {plain_ms:.4f} ms, "
+            f"blend GEMM [{B}, {consts.shapedirs_p.shape[0] // 3 + consts.posedirs_p.shape[0] // 3}] x "
+            f"[.., {3 * consts.num_verts_padded}] {gemm_ms:.4f} ms"
+        )
+    del timer
+    torch.cuda.empty_cache()
+    main_pt = next(p for p in points if p["B"] == LBS_BATCH and p["residuals"])
+    return {
+        "max_abs_err": worst, "ms": main_pt["ms"], "plain_ms": main_pt["plain_ms"],
+        **lbs_bound(consts, LBS_BATCH), "by_batch": points,
+    }
 
 
 def posed_verts2d(model_consts, asset, cfg, rng):
@@ -750,7 +798,7 @@ def main() -> int:
     with torch.no_grad():
         model.ief.layers[-1].weight.mul_(0.01)
 
-    lbs = lbs_phase(asset, rng)
+    lbs = lbs_phase(asset, rng, smi)
     verts2d, far = posed_verts2d(consts, asset, cfg, rng)
     ras4 = raster_phase(consts, cfg, verts2d, far)
     bwd4 = raster_bwd_phase(consts, cfg, verts2d, far, rng)
@@ -771,7 +819,7 @@ def main() -> int:
     fwd["max_abs_err"] = max(fwd["max_abs_err"], ras4["max_abs_err"])
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd4["max_abs_err"])
     kernels = [
-        entry(lbs_cuda.KERNEL, "lbs.cu", "lbs_pallas.py:37", **lbs, **lbs_bound(consts.smpl, LBS_BATCH)),
+        entry(lbs_cuda.KERNEL, "lbs.cu", "lbs_pallas.py:37", **lbs),
         entry(raster_cuda.KERNEL, "raster_fwd.cu", "raster_pallas.py:73", **fwd),
         entry(raster_cuda.KERNEL_BWD, "raster_bwd.cu", "raster_pallas.py:103", **bwd),
     ]

@@ -30,8 +30,8 @@ class SMPLConsts:
 
     The `_p` fields are planar (channel-major, vertex-minor) copies padded to
     a 128-multiple vertex count, each blendshape component group padded to
-    an 8-multiple of rows: the layout the LBS kernel reads, one thread per
-    vertex, neighbouring threads on neighbouring addresses. The plain twin
+    an 8-multiple of rows: the layout the LBS kernel reads, each basis row's
+    32-vertex tile one contiguous 128-byte copy. The plain twin
     reads the same layouts; the flat fields serve the rest-pose joints and
     the keypoint regressor.
     """
