@@ -36,7 +36,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
 5. Training: the config4_full step at B=32, 256² (`train.init_state`,
    `train.fused_step`: batch generation with the LBS and raster forward
    kernels, then forward, losses, backward through the raster backward
-   kernel, Adam). After a warm-up, 20 timed steps are the counted main path:
+   kernel, Adam). After a warm-up, 10 timed steps are the counted main path:
    each step must launch the raster forward kernel twice, the raster
    backward kernel once and the LBS kernel twice. Prints the median ms/step
    and img/s. Then 20 steps on one fixed batch must lower the total loss;
@@ -47,15 +47,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the raster kernels are held against the exact twins and the culled plain
    versions and timed on that step's own inputs (the predicted vertices,
    the loss's cotangent of the scores and a random one), beside the
-   reference's separable formulation in torch (the yardstick), with their
-   bound recounted from the step's data (`raster_bound`).
+   reference's separable formulation in float32 (the yardstick,
+   `raster.separable_scores` at 'highest'), with their bound recounted from
+   the step's data (`raster_bound`).
+6. Separable raster (the reference's default route) on the same step's
+   slots and cotangent: 'highest' against the exact twin, 'high', 'default'
+   and the bf16 training scores against 'highest'; the bf16 forward and
+   forward + backward timed beside the kernels; and the step's loss terms
+   with `raster_impl='separable'` against the kernels'.
+7. The config4_mixed recipe at full width (ResNet-34, rot6d, b32, cosine
+   warm-up, clip 1.0, the 3D weights, EMA 0.999): after a warm-up, counted
+   fused steps (2 LBS, 2 raster forward, 1 raster backward launches each),
+   one call of 4 steps (`steps_per_call`), then `evaluate` on 4 x 32 images
+   of the model (its own counted launches: 3 LBS and 2 raster forward a
+   batch) and of its EMA, and of the model with the plain versions forced,
+   which must agree with the kernels' metrics.
 
 The last three lines of standard output are the kernel record
-({"kernels": [...]}, with each kernel's launches on the training main path,
-its time, its plain twin's and, for the raster kernels, the separable
-yardstick's at the training path's shapes, and its bound; the LBS entry
-adds `by_batch`, its warm and cold times, bound and blend GEMM at each
-batch of LBS_BATCHES with and without the residuals),
+({"kernels": [...]}, with each kernel's launches on the config4_full
+training main path, on the config4_mixed steps and in its evaluation, its
+time, its plain twin's and, for the raster kernels, the float32 separable
+yardstick's and the bf16 separable times at the training path's shapes,
+and its bound; the LBS entry adds `by_batch`, its warm and cold times,
+bound and blend GEMM at each batch of LBS_BATCHES with and without the
+residuals),
 the `nvidia-smi` name/power-limit line and {"ok": true, "device": {...}}.
 """
 
@@ -72,7 +87,7 @@ import time
 import numpy as np
 import torch
 
-from indirect_learning_pose_shape_tpu_torch import configs, losses, predict, serve, train
+from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
@@ -100,7 +115,7 @@ GRAD_TOL = 2e-5
 # not negligible (see training_phase): 3.3e-4 measured on an H100.
 CULL_TOL = 2e-3
 TRAIN_WARMUP = 3
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10  # counted steps, few: the whole run should stay near 70 s
 # The bf16 step's noise-floor control: the twins' step against itself with
 # the predicted pixel vertices multiplied by (1 + JITTER·N(0, 1)), a change
 # of a few float32 ulps, once per seed in JITTER_SEEDS. The kernels' step
@@ -109,6 +124,29 @@ JITTER = 1e-6
 JITTER_SEEDS = (0, 1, 2)
 FLOOR_MULTIPLE = 4.0
 PER_STEP = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 2, raster_cuda.KERNEL_BWD: 1}
+# Separable raster against 'highest', normalised by the largest score: the
+# reference documents 5e-5 for 'high' and ~9e-3 for 'default' (an H100
+# read 2.1e-6 and 6.4e-4); bf16 training scores held to 1e-2 (4.1e-3).
+# Each backward on the step's loss cotangent is held to the same limit
+# ('highest' and the bf16 scores against the exact twin's gradient, the
+# first to GRAD_TOL; an H100 read 3.0e-7, 'high' 1.6e-6, 'default' 7.5e-4,
+# bf16 1.1e-3).
+SEP_HIGH_TOL = 5e-5
+SEP_DEFAULT_TOL = 9e-3
+SEP_BF16_TOL = 1e-2
+# The config4_full step's loss terms with bf16 separable scores against the
+# kernels' float32 scores, relative (an H100 read 3.1e-6 at worst).
+SEP_STEP_TOL = 1e-4
+MIXED_WARMUP = 3
+MIXED_STEPS = 10
+MIXED_CALL = 4  # steps_per_call of the one chunked call
+EVAL_BATCHES = 4
+# evaluate with the kernels against the plain versions: the thresholded
+# metrics can flip boundary pixels (absolute), the others relative (an H100
+# read 4.9e-6 and 4.1e-5 at worst).
+EVAL_ABS = ("sil_iou", "part_acc", "miou")
+EVAL_ABS_TOL = 1e-3
+EVAL_REL_TOL = 1e-3
 
 # The card's limits for bounds (H100 SXM, at its 700 W limit): HBM 3.35 TB/s
 # and 67 TFLOP/s float32 outside the tensor cores (NVIDIA's data sheet);
@@ -247,21 +285,6 @@ def raster_bound(vx: torch.Tensor, layout, rcfg, work: dict, backward: bool) -> 
     out["ops_bound_by"] = "exponentials" if t_exp >= t_fma else "fma"
     out["bound_ms_exp_per_pair"] = work["pairs"] / EXP_PER_S * 1e3
     return {**out, **work}
-
-
-def separable_scores(vx: torch.Tensor, num_parts: int, seg_size: int, rcfg) -> torch.Tensor:
-    """The yardstick for both raster kernels: the reference's default
-    `impl='separable'` formulation (ops/raster.py `_raster_scores_separable`)
-    in torch, unculled: two exponential factor tables [B, C, S, W] and
-    [B, C, S, H], then one float32 `torch.bmm` to [B, C, H, W]. Timed here
-    only; the port never calls it."""
-    B, size = vx.shape[0], rcfg.image_size
-    v = vx.reshape(B, num_parts, seg_size, 2)
-    r = torch.arange(size, dtype=vx.dtype, device=vx.device)
-    inv2s2 = 1.0 / (2.0 * rcfg.sigma * rcfg.sigma)
-    fx = torch.exp(-torch.square(r - v[..., 0:1]) * inv2s2).reshape(-1, seg_size, size)
-    fy = torch.exp(-torch.square(r - v[..., 1:2]) * inv2s2).reshape(-1, seg_size, size)
-    return torch.bmm(fy.transpose(1, 2), fx).reshape(B, num_parts, size, size)
 
 
 @contextlib.contextmanager
@@ -628,8 +651,7 @@ def training_phase(asset, smi) -> dict:
 
     # --- One fixed batch: 20 steps from the initial weights lower the loss.
     batch = train.make_batch(cfg.seed, 10**6, B, consts, cfg)
-    fixed = train.TrainState(copy.deepcopy(init_model), None, 0, cfg.seed)
-    fixed.optimizer = train.make_optimizer(fixed.model, cfg)
+    fixed = train.new_state(copy.deepcopy(init_model), cfg, cfg.seed)
     fixed_loss = [float(train.train_step(fixed, batch, consts, cfg)["total"]) for _ in range(20)]
     check(fixed_loss[-1] < fixed_loss[0], f"20 steps on one batch did not lower the loss: {fixed_loss}")
     print(f"[train] 20 steps on one batch: total loss {fixed_loss[0]:.5f} -> {fixed_loss[-1]:.5f}")
@@ -656,6 +678,8 @@ def training_phase(asset, smi) -> dict:
 
     for label, enc_cfg in (("bf16", cfg.model.encoder), ("float32 encoder", enc_f32)):
         (gk, tk), (gt, tt) = step1(cfg, enc_cfg), step1(cfg_t, enc_cfg)
+        if label == "bf16":
+            kernel_terms = tk
         term_err = max(abs(tk[k] - v) / max(abs(v), 1e-12) for k, v in tt.items())
         errs = {k: norm_err(gk[k], g) for k, g in gt.items()}
         head = max(e for k, e in errs.items() if not k.startswith("encoder."))
@@ -687,7 +711,7 @@ def training_phase(asset, smi) -> dict:
     layout, rcfg = consts.part_layout, cfg.model.raster
     C, S, real = layout.num_parts, layout.seg_size, layout.real
     m = copy.deepcopy(init_model)
-    out = net.forward_train(m, consts, batch["image"], cfg.model)
+    out = net.forward_train(m, consts, batch["image"], cfg.model, probs=False)
     check(float(out["silhouette"].detach().amax()) > 0.5, "the predicted silhouette has no foreground")
     targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
     total, _ = losses.total_loss(out, targets, cfg.loss_weight_dict, size)
@@ -738,6 +762,7 @@ def training_phase(asset, smi) -> dict:
     print(f"[train] loss cotangent |g| up to {float(g.abs().max()):.3g}, median {float(g.abs().median()):.3g}")
 
     work = raster_work(vx, layout, rcfg)
+    f32 = dataclasses.replace(rcfg, matmul_precision="highest")  # the float32 yardstick
     fwd = {"max_abs_err": max_err(fk, ft), **raster_bound(vx, layout, rcfg, work, backward=False)}
     bwd = {"max_abs_err": max_err(bk["loss"], bt["loss"]), **raster_bound(vx, layout, rcfg, work, backward=True)}
     with torch.no_grad():
@@ -745,10 +770,10 @@ def training_phase(asset, smi) -> dict:
         fwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores4(vx, real, C, S, rcfg, impl="torch"), 1, reps=3)
         bwd["ms"] = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg), 20)
         bwd["plain_ms"] = device_ms(lambda: raster_cuda.raster_scores_bwd_torch(vx, g, C, S, rcfg), 1, reps=3)
-        fwd["library_ms"] = device_ms(lambda: separable_scores(vx, C, S, rcfg), 10)
-        sep_f = separable_scores(vx, C, S, rcfg)
+        fwd["library_ms"] = device_ms(lambda: raster.separable_scores(vx, C, S, f32), 10)
+        sep_f = raster.separable_scores(vx, C, S, f32)
     v_req = vx.detach().clone().requires_grad_(True)
-    sep = separable_scores(v_req, C, S, rcfg)
+    sep = raster.separable_scores(v_req, C, S, f32)
     bwd["library_ms"] = events_ms(lambda: torch.autograd.grad(sep, v_req, g, retain_graph=True), 10)
     (sep_b,) = torch.autograd.grad(sep, v_req, g)
     del sep
@@ -766,13 +791,184 @@ def training_phase(asset, smi) -> dict:
             f"{r['pairs_in_kernel_boxes']} computed ({r['pairs_in_kernel_boxes'] / r['pairs']:.2f}x); "
             f"{r['exps']} factor exponentials, {r['g_pixels']} cotangent pixels inside the boxes [{smi}]"
         )
+    sep = separable_phase(
+        cfg, consts, vx, g, ft, bt["loss"], (fwd["ms"], bwd["ms"]), kernel_terms,
+        lambda c: step1(c, cfg.model.encoder)[1], smi,
+    )
+    fwd["separable_bf16_ms"], bwd["separable_bf16_fwd_bwd_ms"] = sep
     return {"launches": launches, "raster_fwd": fwd, "raster_bwd": bwd, "ms_per_step": med}
+
+
+def separable_phase(cfg, consts, vx, g, exact, exact_grad, kernel_ms, kernel_terms, step_terms, smi):
+    """The reference's default raster, `raster.separable_scores`, at B=32 on
+    the config4_full step's predicted slots `vx` and loss cotangent `g`:
+    'highest' against the exact twin's scores `exact`; 'high', 'default'
+    and the bf16 training scores against 'highest'; the bf16 forward and
+    forward + backward timed beside the kernels' `kernel_ms`; and the step's
+    loss terms with `raster_impl='separable'` (the presets' bf16 scores)
+    against the kernel step's `kernel_terms`. Returns the two bf16 times."""
+    layout, rcfg = consts.part_layout, cfg.model.raster
+    C, S, B = layout.num_parts, layout.seg_size, vx.shape[0]
+
+    def sep(precision, v=vx, out_dtype=None):
+        rc = dataclasses.replace(rcfg, matmul_precision=precision)
+        return raster.separable_scores(v, C, S, rc, out_dtype)
+
+    with torch.no_grad():
+        scores = {p: sep(p) for p in raster.PRECISIONS}
+        bf16 = sep(rcfg.matmul_precision, out_dtype=torch.bfloat16)
+    hi = scores["highest"]
+    bad = (hi - exact).abs() > TOL + TOL * exact.abs()
+    check(not bool(bad.any()), f"separable 'highest' vs the exact twin at B={B}: max abs err {max_err(hi, exact)}")
+    errs = {p: norm_err(scores[p], hi) for p in ("high", "default")}
+    errs["bf16 training scores"] = norm_err(bf16.float(), hi)
+    for name, tol in (("high", SEP_HIGH_TOL), ("default", SEP_DEFAULT_TOL), ("bf16 training scores", SEP_BF16_TOL)):
+        check(errs[name] <= tol, f"separable {name} vs 'highest' at B={B}: normalised err {errs[name]} > {tol}")
+    print(
+        f"[separable] B={B} on the step's slots: 'highest' max abs err {max_err(hi, exact):.3e} against "
+        f"the exact twin; normalised against 'highest' (max score {float(hi.max()):.3f}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    )
+
+    g16 = g.to(torch.bfloat16)
+    v_req = vx.detach().clone().requires_grad_(True)
+
+    def slot_grad(precision, out_dtype=None):
+        cot = g16 if out_dtype == torch.bfloat16 else g
+        (d,) = torch.autograd.grad(sep(precision, v_req, out_dtype), v_req, cot)
+        return d.transpose(1, 2)
+
+    grads = {p: slot_grad(p) for p in raster.PRECISIONS}
+    grad_errs = {
+        "'highest' vs the exact twin": (norm_err(grads["highest"], exact_grad), GRAD_TOL),
+        "'high' vs 'highest'": (norm_err(grads["high"], grads["highest"]), SEP_HIGH_TOL),
+        "'default' vs 'highest'": (norm_err(grads["default"], grads["highest"]), SEP_DEFAULT_TOL),
+        "bf16 training scores vs the exact twin": (
+            norm_err(slot_grad(rcfg.matmul_precision, torch.bfloat16), exact_grad), SEP_BF16_TOL),
+    }
+    for name, (err, tol) in grad_errs.items():
+        check(err <= tol, f"separable slot gradient {name} at B={B}: normalised err {err} > {tol}")
+    print(
+        f"[separable] slot gradient on the loss cotangent at B={B}, normalised: "
+        + ", ".join(f"{k} {v[0]:.3e}" for k, v in grad_errs.items())
+    )
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: sep(rcfg.matmul_precision, out_dtype=torch.bfloat16), 20)
+
+    def fwd_bwd():
+        out = sep(rcfg.matmul_precision, v_req, torch.bfloat16)
+        return torch.autograd.grad(out, v_req, g16)
+
+    fwd_bwd_ms = events_ms(fwd_bwd, 10)
+    print(
+        f"[separable] bf16 training scores at B={B}: forward {fwd_ms:.4f} ms (raster forward kernel "
+        f"{kernel_ms[0]:.4f} ms), forward + backward on the loss cotangent {fwd_bwd_ms:.4f} ms (the "
+        f"kernels {kernel_ms[0] + kernel_ms[1]:.4f} ms) [{smi}]"
+    )
+
+    cfg_s = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, raster_impl="separable"))
+    terms = step_terms(cfg_s)
+    term_err = {k: abs(terms[k] - v) / max(abs(v), 1e-12) for k, v in kernel_terms.items()}
+    worst = max(term_err, key=term_err.get)
+    check(
+        term_err[worst] <= SEP_STEP_TOL,
+        f"config4_full step 1 with raster_impl='separable' vs the kernels: {worst} rel err {term_err[worst]}",
+    )
+    print(
+        f"[separable] config4_full step 1 with raster_impl='separable' (bf16 scores) vs the kernels: "
+        f"loss terms rel err " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(term_err.items()))
+    )
+    return fwd_ms, fwd_bwd_ms
+
+
+def mixed_phase(asset, smi) -> dict:
+    """config4_mixed at full width (ResNet-34, rot6d, b32, 256², cosine
+    warm-up, clip 1.0, the 3D weights) with an EMA of decay 0.999: counted
+    fused steps, one call of MIXED_CALL steps, then `evaluate` of the model
+    and its EMA, and of the model with the plain versions forced."""
+    cfg = dataclasses.replace(configs.CONFIG4_MIXED, ema_decay=0.999)
+    B = cfg.batch_size
+    ts, consts = train.init_state(cfg, asset=asset, device="cuda")
+    with torch.no_grad():  # keep the seed-0 bodies in frame (see main)
+        ts.model.ief.layers[-1].weight.mul_(0.01)
+    ts = train.new_state(ts.model, cfg, cfg.seed)  # the EMA starts at the scaled weights
+    for _ in range(MIXED_WARMUP):
+        train.fused_step(ts, consts, cfg)
+    torch.cuda.synchronize()
+
+    # --- Counted: fused steps of the mixed recipe. --------------------------
+    _build.reset_counts()
+    times, totals = [], []
+    for _ in range(MIXED_STEPS):
+        t0 = time.perf_counter()
+        terms = train.fused_step(ts, consts, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(terms["total"]))
+    launches = _build.counts()
+    for name, per in PER_STEP.items():
+        check(launches.get(name, 0) == per * MIXED_STEPS,
+              f"config4_mixed: kernel {name} launched {launches.get(name, 0)} times in {MIXED_STEPS} steps")
+    check(all(np.isfinite(totals)), f"config4_mixed: non-finite loss {totals}")
+    check(all(k in terms for k in ("j3d", "rotmat", "betas_l2")), f"config4_mixed: 3D terms missing: {sorted(terms)}")
+    med = statistics.median(times)
+    print(
+        f"[mixed] config4_mixed B={B} {cfg.model.image_size}^2 (ResNet-34, rot6d, cosine, clip "
+        f"{cfg.grad_clip_norm}, EMA {cfg.ema_decay}): launches over {MIXED_STEPS} steps {launches}; "
+        f"median {med:.3f} ms/step ({B / med * 1e3:.1f} img/s), p90 {float(np.percentile(times, 90)):.3f} ms; "
+        f"loss {totals[0]:.4f} -> {totals[-1]:.4f}; terms "
+        + ", ".join(f"{k} {float(v):.4g}" for k, v in sorted(terms.items())) + f" [{smi}]"
+    )
+
+    chunk = dataclasses.replace(cfg, steps_per_call=MIXED_CALL)
+    step0 = ts.step
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    terms = train.fused_step(ts, consts, chunk)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    call_launches = _build.counts()
+    check(ts.step == step0 + MIXED_CALL, f"steps_per_call={MIXED_CALL} took {ts.step - step0} steps")
+    for name, per in PER_STEP.items():
+        check(call_launches.get(name, 0) == per * MIXED_CALL,
+              f"steps_per_call={MIXED_CALL}: kernel {name} launched {call_launches.get(name, 0)} times")
+    check(bool(np.isfinite(float(terms["total"]))), "steps_per_call: non-finite loss")
+    print(f"[mixed] one call of steps_per_call={MIXED_CALL}: {call_ms:.3f} ms, launches {call_launches}")
+
+    # --- evaluate: the model, its EMA, and the model with plain versions. ---
+    _build.reset_counts()
+    metrics = {"model": evaluate.evaluate(ts.model, consts, cfg, EVAL_BATCHES)}
+    eval_launches = _build.counts()
+    per_batch = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 2}  # batch, forward, ground truth SMPL
+    for name, per in per_batch.items():
+        check(eval_launches.get(name, 0) == per * EVAL_BATCHES,
+              f"evaluate: kernel {name} launched {eval_launches.get(name, 0)} times in {EVAL_BATCHES} batches")
+    check(eval_launches.get(raster_cuda.KERNEL_BWD, 0) == 0, "evaluate launched the raster backward kernel")
+    metrics["EMA"] = evaluate.evaluate(train.ema_model(ts), consts, cfg, EVAL_BATCHES)
+    plain = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, smpl_impl="torch", raster_impl="torch"))
+    metrics["plain versions"] = evaluate.evaluate(ts.model, consts, plain, EVAL_BATCHES)
+    for label, m in metrics.items():
+        check(all(np.isfinite(v) for v in m.values()), f"evaluate ({label}): non-finite metric {m}")
+        for k in ("sil_iou", "part_acc", "miou"):
+            check(0.0 <= m[k] <= 1.0, f"evaluate ({label}): {k} = {m[k]} outside [0, 1]")
+        print(f"[eval] {label}, {EVAL_BATCHES} x {B} images: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items())))
+    k_m, p_m = metrics["model"], metrics["plain versions"]
+    diff = {k: abs(k_m[k] - p_m[k]) / (1.0 if k in EVAL_ABS else max(abs(p_m[k]), 1e-12)) for k in k_m}
+    for k, d in diff.items():
+        tol = EVAL_ABS_TOL if k in EVAL_ABS else EVAL_REL_TOL
+        check(d <= tol, f"evaluate, kernels vs plain versions: {k} differs by {d} > {tol}")
+    print(
+        "[eval] kernels vs plain versions: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diff.items()))
+        + f" (absolute for {', '.join(EVAL_ABS)}, relative otherwise); eval launches {eval_launches}"
+    )
+    return {"launches": launches, "ms_per_step": med, "eval_launches": eval_launches}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = smi_line()
     disable_tf32()
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {smi}")
@@ -804,6 +1000,7 @@ def main() -> int:
     bwd4 = raster_bwd_phase(consts, cfg, verts2d, far, rng)
     serve_launches = serving_phase(cfg, model, consts, rng, smi)
     tr = training_phase(asset, smi)
+    mixed = mixed_phase(asset, smi)
 
     def entry(name, source, replaces, **numbers):
         return dict(
@@ -812,6 +1009,8 @@ def main() -> int:
             replaces=f"indirect_learning_pose_shape_tpu/ops/kernels/{replaces}",
             launches=tr["launches"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
+            launches_mixed=mixed["launches"].get(name, 0),
+            launches_eval=mixed["eval_launches"].get(name, 0),
             **{"library_ms": None, **numbers},
         )
 
@@ -823,6 +1022,7 @@ def main() -> int:
         entry(raster_cuda.KERNEL, "raster_fwd.cu", "raster_pallas.py:73", **fwd),
         entry(raster_cuda.KERNEL_BWD, "raster_bwd.cu", "raster_pallas.py:103", **bwd),
     ]
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -6,9 +6,14 @@ inference path), IEF with 3 iterations over (1024, 1024), σ=2 soft raster.
 
 `TrainConfig` keeps the reference's field names. The fields this port
 honours are `model`, `synthetic`, `batch_size`, `learning_rate`,
-`num_steps`, `seed`, `loss_weights` and `log_every`. The others exist only
-so that a non-default value is refused with the ROADMAP item that brings
-it, never ignored. The reference's `augment` (disk data) is not carried.
+`lr_schedule`, `warmup_steps`, `grad_clip_norm`, `weight_decay`,
+`num_steps`, `seed`, `loss_weights`, `steps_per_call`, `log_every` and
+`ema_decay` (train.py says how each acts). The others exist only so that a
+non-default value is refused with the ROADMAP item that brings it, never
+ignored. The reference's `augment` (disk data) is not carried.
+
+9 of the reference's 11 presets are here; `config4_robust` waits for item
+12 (hard targets and appearance), `config5_data_parallel` for item 16.
 """
 
 from __future__ import annotations
@@ -21,27 +26,23 @@ from indirect_learning_pose_shape_tpu_torch.models.ief import IEFConfig
 from indirect_learning_pose_shape_tpu_torch.models.network import ModelConfig
 from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
 
-_OPTIMIZER = "ROADMAP.md, Queue 1 item 10 (the optimizer menu: cosine/warmup, AdamW, clipping, EMA, steps_per_call)"
-_CHECKPOINTS = "ROADMAP.md, Queue 1 item 14 (checkpoints and metrics writers)"
-_PRETRAINED = "ROADMAP.md, Queue 1 item 17 (pretrained weights and mean-parameter files)"
-_MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
+# The ROADMAP items that bring what this port refuses.
+CHECKPOINTS = "ROADMAP.md, Queue 1 item 14 (checkpoints and metrics writers)"
+DISK_DATA = "ROADMAP.md, Queue 1 item 15 (disk data)"
+MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
+PRETRAINED = "ROADMAP.md, Queue 1 item 17 (pretrained weights and mean-parameter files)"
+INT8 = "ROADMAP.md, Queue 1 item 17 (serving and tools: int8 post-training quantization)"
 
 # Field -> (the only value this port takes, the ROADMAP item that brings others).
 _NOT_YET = {
-    "lr_schedule": ("constant", _OPTIMIZER),
-    "warmup_steps": (200, _OPTIMIZER),
-    "grad_clip_norm": (0.0, _OPTIMIZER),
-    "weight_decay": (0.0, _OPTIMIZER),
-    "ema_decay": (0.0, _OPTIMIZER),
-    "steps_per_call": (1, _OPTIMIZER),
-    "checkpoint_every": (0, _CHECKPOINTS),
-    "checkpoint_dir": ("/tmp/ilps_ckpt", _CHECKPOINTS),
-    "metrics_path": (None, _CHECKPOINTS),
-    "tensorboard_dir": (None, _CHECKPOINTS),
-    "pretrained": (None, _PRETRAINED),
-    "mean_params": (None, _PRETRAINED),
-    "num_devices": (None, _MULTI_GPU),
-    "render_devices": (1, _MULTI_GPU),
+    "checkpoint_every": (0, CHECKPOINTS),
+    "checkpoint_dir": ("/tmp/ilps_ckpt", CHECKPOINTS),
+    "metrics_path": (None, CHECKPOINTS),
+    "tensorboard_dir": (None, CHECKPOINTS),
+    "pretrained": (None, PRETRAINED),
+    "mean_params": (None, PRETRAINED),
+    "num_devices": (None, MULTI_GPU),
+    "render_devices": (1, MULTI_GPU),
 }
 
 
@@ -66,13 +67,13 @@ class TrainConfig:
         ("betas_l2", 0.0),
     )
     log_every: int = 10
-    # Refused unless at these defaults (see _NOT_YET).
-    lr_schedule: str = "constant"
+    lr_schedule: str = "constant"  # 'constant' | 'cosine' (linear warm-up, cosine decay)
     warmup_steps: int = 200
-    grad_clip_norm: float = 0.0
-    weight_decay: float = 0.0
-    ema_decay: float = 0.0
-    steps_per_call: int = 1
+    grad_clip_norm: float = 0.0  # 0 disables global-norm clipping
+    weight_decay: float = 0.0  # 0 = Adam; > 0 = AdamW
+    ema_decay: float = 0.0  # 0 disables the parameters' moving average
+    steps_per_call: int = 1  # fused steps per `train.fused_step` call
+    # Refused unless at these defaults (see _NOT_YET).
     checkpoint_every: int = 0
     checkpoint_dir: str = "/tmp/ilps_ckpt"
     metrics_path: str | None = None
@@ -83,6 +84,12 @@ class TrainConfig:
     render_devices: int = 1
 
     def __post_init__(self):
+        if self.lr_schedule not in ("constant", "cosine"):
+            raise ValueError(f"lr_schedule must be 'constant' or 'cosine', got {self.lr_schedule!r}")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {self.steps_per_call}")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
         for name, (default, later) in _NOT_YET.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -96,16 +103,35 @@ class TrainConfig:
 
 
 def _model(image_size: int, depth: int = 18, num_parts: int = 24) -> ModelConfig:
+    # The reference's presets: bf16 separable products and bf16 training
+    # scores. Both act on the separable impl only; the default `auto` is the
+    # kernels on the card (ops/raster.py).
     return ModelConfig(
         image_size=image_size,
         encoder=EncoderConfig(depth=depth, fold_bn_eval=True),
         ief=IEFConfig(),
-        raster=RasterConfig(image_size=image_size, num_parts=num_parts),
+        raster=RasterConfig(
+            image_size=image_size,
+            num_parts=num_parts,
+            matmul_precision="default",
+            train_score_dtype="bfloat16",
+        ),
     )
 
 
+# Reference CONFIG1_SINGLE: one 256² crop, batch 1.
+CONFIG1_SINGLE = TrainConfig(model=_model(256), batch_size=1, num_steps=1)
+# Reference CONFIG2_SMPL_BATCH: batch 64.
+CONFIG2_SMPL_BATCH = TrainConfig(model=_model(256), batch_size=64)
+# Reference CONFIG3_RENDER: the silhouette losses alone.
+CONFIG3_RENDER = TrainConfig(
+    model=_model(256), batch_size=32, loss_weights=(("sil_bce", 1.0), ("sil_iou", 1.0))
+)
 # ResNet-18, axis-angle: the flagship (reference CONFIG4_FULL).
 CONFIG4_FULL = TrainConfig(model=_model(256), batch_size=32)
+# The flagship at batch 128 with the learning rate scaled with the batch
+# (reference CONFIG4_B128).
+CONFIG4_B128 = TrainConfig(model=_model(256), batch_size=128, learning_rate=4e-4)
 # ResNet-34 + continuous 6D rotations (reference CONFIG4_R34).
 CONFIG4_R34 = TrainConfig(
     model=dataclasses.replace(_model(256, depth=34), ief=IEFConfig(rotation_format="rot6d")),
@@ -120,9 +146,39 @@ CONFIG4_LARGE = TrainConfig(
 # disk-data mirror convention).
 CONFIG4_PARTS31 = TrainConfig(model=_model(256, num_parts=31), batch_size=32)
 
+# The reference's best recipe (CONFIG4_MIXED): ResNet-34 + rot6d, cosine
+# warm-up, clipping, and the indirect losses plus direct 3D supervision
+# (the synthetic stream emits its 3D ground truth); direct betas replace
+# the shape prior. It ships at 20000 steps.
+CONFIG4_MIXED = TrainConfig(
+    model=dataclasses.replace(_model(256, depth=34), ief=IEFConfig(rotation_format="rot6d")),
+    batch_size=32,
+    learning_rate=3e-4,
+    lr_schedule="cosine",
+    grad_clip_norm=1.0,
+    num_steps=20000,
+    loss_weights=(
+        ("sil_bce", 1.0),
+        ("sil_iou", 1.0),
+        ("part_ce", 1.0),
+        ("kp", 5.0),
+        ("shape_reg", 0.0),
+        ("pose_reg", 1e-3),
+        ("j3d", 5.0),
+        ("v3d", 0.0),
+        ("rotmat", 1.0),
+        ("betas_l2", 0.02),
+    ),
+)
+
 PRESETS = {
+    "config1_single": CONFIG1_SINGLE,
+    "config2_smpl_batch": CONFIG2_SMPL_BATCH,
+    "config3_render": CONFIG3_RENDER,
     "config4_full": CONFIG4_FULL,
-    "config4_r34": CONFIG4_R34,
+    "config4_b128": CONFIG4_B128,
     "config4_large": CONFIG4_LARGE,
+    "config4_r34": CONFIG4_R34,
+    "config4_mixed": CONFIG4_MIXED,
     "config4_parts31": CONFIG4_PARTS31,
 }

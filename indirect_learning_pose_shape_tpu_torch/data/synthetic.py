@@ -99,6 +99,55 @@ _PALETTE = np.array([
 ], dtype=np.float32)
 
 
+# Named eval distributions (the reference's `EVAL_SUITES`): 'plain' is the
+# training stream; 'hard' and 'hardapp' need item 12 and are refused by
+# `SyntheticConfig` when applied.
+EVAL_SUITES = {
+    "plain": (),
+    "hard": ("targets=hard",),
+    "hardapp": (
+        "targets=hard",
+        "bg_mode=texture",
+        "color_jitter=0.08",
+        "shading=0.6",
+        "occluders=2",
+    ),
+}
+
+
+def apply_overrides(cfg: SyntheticConfig, specs) -> SyntheticConfig:
+    """`cfg` with CLI ``FIELD=VALUE`` overrides applied (the reference's
+    `apply_overrides`): unknown fields raise ValueError, `cam_scale_range`
+    parses as ``lo,hi``, and a value this port does not take yet raises
+    NotImplementedError from `SyntheticConfig`."""
+    valid = {f.name for f in dataclasses.fields(SyntheticConfig)}
+    choices = {"targets": ("soft", "hard"), "bg_mode": ("none", "noise", "texture")}
+    updates = {}
+    for spec in specs:
+        name, sep, value = spec.partition("=")
+        if not sep or name not in valid:
+            raise ValueError(
+                f"synthetic override {spec!r}: expected FIELD=VALUE with FIELD among {sorted(valid)}"
+            )
+        try:
+            if name == "cam_scale_range":
+                parts = value.split(",")
+                if len(parts) != 2:
+                    raise ValueError("takes LO,HI (e.g. cam_scale_range=0.5,1.3)")
+                updates[name] = (float(parts[0]), float(parts[1]))
+            elif name in choices:
+                if value not in choices[name]:
+                    raise ValueError(f"takes one of {choices[name]}")
+                updates[name] = value
+            elif name == "occluders":
+                updates[name] = int(value)
+            else:
+                updates[name] = float(value)
+        except ValueError as e:
+            raise ValueError(f"synthetic override {spec!r}: {e}") from None
+    return dataclasses.replace(cfg, **updates)
+
+
 def part_palette(num_channels: int) -> np.ndarray:
     """[num_channels, 3] float32 RGB per channel (0 = background, dark)."""
     if num_channels not in (25, 32):
@@ -150,6 +199,7 @@ def render_batch(
     consts: net.ModelConsts,
     model_cfg: net.ModelConfig,
     cfg: SyntheticConfig,
+    include_3d: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One batch from `draws` (see `sample_draws`), on their device:
 
@@ -159,10 +209,13 @@ def render_batch(
       kp2d        [B, K, 2]    pixel keypoints
       kp_vis      [B, K]       visibility mask
       gt_pose / gt_betas / gt_cam (recovery diagnostics)
+      gt_joints3d [B, J, 3], gt_verts [B, V, 3], gt_rotmats [B, J, 3, 3]
+                  (the direct-supervision targets, with include_3d)
 
-    The target render is the raster forward in float32 stored as bf16, as
-    the reference's target path; labels are argmaxes and thresholds of those
-    scores, and the image is the bf16 palette mix summed in float32.
+    The target render is stored as bf16, as the reference's target path
+    (on the separable impl at matmul_precision 'default'); labels are
+    argmaxes and thresholds of those scores, and the image is the bf16
+    palette mix summed in float32.
     """
     size = model_cfg.image_size
     pose, betas, cam = draws["pose"], draws["betas"], draws["cam"]
@@ -170,8 +223,9 @@ def render_batch(
     verts2d = camera.project_pixel(smpl_out["verts"], cam, size)
     kp2d = camera.project_pixel(smpl_out["kp3d"], cam, size)
 
+    target_raster = dataclasses.replace(model_cfg.raster, matmul_precision="default")
     score = raster.raster_scores_cf(
-        verts2d, consts.part_layout, model_cfg.raster, impl=model_cfg.raster_impl,
+        verts2d, consts.part_layout, target_raster, impl=model_cfg.raster_impl,
         out_dtype=torch.bfloat16,
     )  # [B, C, S, S]
     bg = float(model_cfg.raster.bg_gamma)
@@ -196,7 +250,7 @@ def render_batch(
     # random dropout.
     in_crop = torch.all((kp2d >= 0.0) & (kp2d <= size - 1.0), dim=-1)
     kp_vis = (in_crop & (draws["vis_u"] < cfg.kp_visibility)).float()
-    return {
+    out = {
         "image": image,
         "silhouette": silhouette,
         "part_labels": part_labels,
@@ -206,3 +260,11 @@ def render_batch(
         "gt_betas": betas,
         "gt_cam": cam,
     }
+    if include_3d:
+        B, J = pose.shape[0], consts.smpl.num_joints
+        out["gt_joints3d"] = smpl_out["joints"]
+        out["gt_verts"] = smpl_out["verts"]
+        # The stream samples axis-angle; rotation matrices are the target a
+        # rot6d head can be supervised with.
+        out["gt_rotmats"] = smpl_mod.batch_rodrigues(pose.reshape(B, J, 3))
+    return out

@@ -3,8 +3,9 @@ projection, plus the soft-raster render of the predicted mesh.
 
 `forward` is the inference path (`train=True` normalizes with batch
 statistics); `render_outputs` adds the rendered part probabilities and
-silhouette; `forward_train` is the training path, with the score-form
-render the training losses read (`score_cp`, `s_total`, `bg_gamma`).
+silhouette, or the score form the training losses read (`score_cp`,
+`s_total`, `bg_gamma`); `forward_train` is both: the training path with
+`probs=False`, evaluation's rendered outputs with `train=False`.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ class ModelConfig:
     ief: ief_mod.IEFConfig = ief_mod.IEFConfig()
     raster: raster.RasterConfig = raster.RasterConfig()
     smpl_impl: str = "auto"  # 'kernel' | 'torch' | 'auto' (kernel on CUDA)
-    raster_impl: str = "auto"  # 'kernel' | 'torch' | 'auto' (kernel on CUDA)
+    # 'kernel' | 'torch' | 'separable' | 'auto' (kernel on CUDA; see ops/raster.py)
+    raster_impl: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,19 +99,21 @@ def forward(
 
 
 def forward_train(
-    model: Model, consts: ModelConsts, images: torch.Tensor, cfg: ModelConfig
+    model: Model,
+    consts: ModelConsts,
+    images: torch.Tensor,
+    cfg: ModelConfig,
+    train: bool = True,
+    probs: bool = True,
 ) -> dict[str, torch.Tensor]:
-    """Training path: `forward` with batch-statistics BatchNorm (running
-    statistics updated in place), then the score-form render
-    (ops/raster.soft_rasterize_train): outputs + `verts2d`, `silhouette`,
-    `score_cp` [B,C,H*W], `s_total` [B,H*W] and `bg_gamma`."""
-    outputs = forward(model, consts, images, cfg, train=True)
-    verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
-    rendered = raster.soft_rasterize_train(
-        verts2d, consts.part_layout, cfg.raster, impl=cfg.raster_impl
-    )
-    outputs.update(rendered, verts2d=verts2d, bg_gamma=cfg.raster.bg_gamma)
-    return outputs
+    """`forward`, then the render of the prediction (`render_outputs`).
+
+    train=True normalizes with batch statistics (running statistics updated
+    in place); train=False uses the running statistics, which is what
+    evaluation measures. probs=False renders the score form the training
+    losses read (`score_cp`, `s_total`, `bg_gamma`) instead of `probs`."""
+    outputs = forward(model, consts, images, cfg, train=train)
+    return render_outputs(outputs, consts, cfg, probs=probs)
 
 
 def head_from_features(
@@ -143,13 +147,22 @@ def head_from_features(
     }
 
 
-def render_outputs(outputs: dict, consts: ModelConsts, cfg: ModelConfig) -> dict:
-    """outputs + rendered `probs` [B,H,W,C+1], `silhouette`, `verts2d`."""
+def render_outputs(
+    outputs: dict, consts: ModelConsts, cfg: ModelConfig, probs: bool = True
+) -> dict:
+    """outputs + `verts2d`, `silhouette` and either the rendered `probs`
+    [B,H,W,C+1] or, with probs=False, the score form
+    (ops/raster.soft_rasterize_train): `score_cp` [B,C,H*W], `s_total`
+    [B,H*W] and `bg_gamma`."""
     verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
-    rendered = raster.soft_rasterize(
-        verts2d, consts.part_layout, cfg.raster, impl=cfg.raster_impl
-    )
-    outputs["probs"] = rendered["probs"]
+    layout, rcfg, impl = consts.part_layout, cfg.raster, cfg.raster_impl
+    if probs:
+        rendered = raster.soft_rasterize(verts2d, layout, rcfg, impl=impl)
+        outputs["probs"] = rendered["probs"]
+    else:
+        rendered = raster.soft_rasterize_train(verts2d, layout, rcfg, impl=impl)
+        outputs.update(score_cp=rendered["score_cp"], s_total=rendered["s_total"],
+                       bg_gamma=rcfg.bg_gamma)
     outputs["verts2d"] = verts2d
     outputs["silhouette"] = rendered["silhouette"]
     return outputs

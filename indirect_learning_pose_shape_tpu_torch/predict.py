@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from indirect_learning_pose_shape_tpu_torch import configs
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
@@ -25,10 +26,19 @@ def load_model(
     asset=None,
     seed: int = 0,
     device: torch.device | str = "cuda",
+    ema: bool = False,
 ) -> tuple[net.Model, net.ModelConsts]:
     """(model, consts) on `device` (the card unless the caller asks for the
     CPU; raises without one): a fresh init from `seed`, overwritten by the
-    weights in `params_npz` when given (strict key and shape check)."""
+    weights in `params_npz` when given (strict key and shape check).
+
+    ema=True (the EMA parameters of a trained run) needs checkpoints, which
+    are not ported yet; a live run's EMA model is `train.ema_model`."""
+    if ema:
+        raise NotImplementedError(
+            "loading EMA parameters needs a checkpoint; it comes with "
+            f"{configs.CHECKPOINTS} (a live run's EMA model is train.ema_model)"
+        )
     asset = asset if asset is not None else assets_lib.load_asset()
     model, consts = net.init(asset, cfg, seed=seed, device=device)
     if params_npz:

@@ -3,7 +3,9 @@
     python -m indirect_learning_pose_shape_tpu_torch.tools.profile_train \\
         [--preset config4_full] [--batch-size 32] [--out profile_train.json]
 
-Builds the training state of the preset at full width with seed-0 weights
+Builds the training state of the preset (any of `configs.PRESETS`, e.g.
+config4_mixed: ResNet-34, rot6d, clipping, the 3D targets) at full width
+with seed-0 weights
 (the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the
 predicted bodies stay in frame and the raster kernels see real work), runs
 `--warmup` fused steps (`train.fused_step`: batch generation + update), then:

@@ -1,7 +1,7 @@
 """Where the port's entry points run.
 
 Entry points (`predict.load_model`, `network.init`, `train.init_state`,
-`train.fit`, the `train` CLI) run on the card unless the caller asks for the
+`train.fit`, the `train` and `evaluate` CLIs) run on the card unless the caller asks for the
 CPU: their `device` defaults to "cuda", and without a CUDA device they raise
 instead of carrying on silently on the CPU.
 """

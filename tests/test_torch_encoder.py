@@ -66,7 +66,7 @@ def _port_encoder(depth, fold, dtype, params, state):
     return model.eval()
 
 
-@pytest.mark.parametrize("depth", [18, 50])
+@pytest.mark.parametrize("depth", [18, 34, 50])
 @pytest.mark.parametrize("fold", [False, True])
 def test_encoder_f32_matches_jax(depth, fold):
     jcfg, params, state = _jax_encoder(depth, fold, jnp.float32)

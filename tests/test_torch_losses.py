@@ -138,3 +138,28 @@ def test_part_ce_scores_equals_probs_form():
         jnp.asarray(s16.float().sum(1).numpy()), 1.0, jnp.asarray(t["part_labels"].numpy()),
     )
     np.testing.assert_allclose(float(c), float(d), rtol=1e-5)
+
+
+def test_part_ce_scores_bf16_value_and_gradient_match_jax():
+    """bf16 scores (the training render under train_score_dtype='bfloat16'):
+    the label pick summed in float32, s_total summed in float32 from the
+    same bf16 scores, and the gradient back through the bf16 scores, against
+    JAX on the same bf16 values: value at 1e-5, gradient (bf16) within one
+    bf16 ulp of the largest entry."""
+    o, t = _data(seed=3)
+    s16 = torch.from_numpy(o["score_cp"]).to(torch.bfloat16)
+    labels = t["part_labels"]
+
+    def jf(s):
+        return jlosses.part_seg_ce_scores(s, jnp.sum(s, axis=1, dtype=jnp.float32), 1.0, jnp.asarray(labels))
+
+    js = jnp.asarray(s16.float().numpy()).astype(jnp.bfloat16)
+    want, jgrad = jax.value_and_grad(jf)(js)
+    x = s16.clone().requires_grad_(True)
+    got = losses.part_seg_ce_scores(x, torch.sum(x, dim=1, dtype=torch.float32), 1.0, torch.from_numpy(labels))
+    got.backward()
+    assert got.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    g, jg = x.grad.float().numpy(), np.asarray(jgrad).astype(np.float32)
+    assert np.abs(jg).max() > 0
+    np.testing.assert_allclose(g, jg, atol=2.0**-8 * np.abs(jg).max())

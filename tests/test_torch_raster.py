@@ -4,6 +4,8 @@ setup: 128², 8 parts); the port's kernel wrapper runs its plain pairwise
 version for CPU tensors.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -183,3 +185,122 @@ def test_camera_matches_jax():
             jnp.asarray(x3d), jnp.asarray(cam_t), 500.0, 128)),
         rtol=1e-5, atol=1e-3,
     )
+
+
+# --- The separable impl (the reference's default) --------------------------
+# JAX on the CPU computes an einsum in float32 at every `precision`, so the
+# port's 'highest' is held to JAX at each of them, and the port's reduced
+# precisions to the port's 'highest', at the reference's documented errors.
+# JAX's bf16 product with preferred_element_type=bf16 is the float32 sum of
+# the bf16 operands rounded once: the port's bf16 path is held to it within
+# one bf16 ulp (2^-8 relative; the 1e-30 absolute term covers subnormals).
+
+
+def _sep(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+def _norm(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("jax_precision", raster.PRECISIONS)
+def test_separable_highest_matches_jax(rng, jax_precision):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    ref = np.asarray(jraster.raster_scores_cf(
+        jnp.asarray(v), jl, _sep(jcfg, matmul_precision=jax_precision), impl="separable"))
+    got = raster.raster_scores_cf(
+        torch.from_numpy(v), tl, _sep(tcfg, matmul_precision="highest"), impl="separable")
+    assert got.dtype == torch.float32
+    err = _norm(got.numpy(), ref)
+    assert err <= 1e-5, err
+    # The channel-last form is the same scores transposed.
+    bpc = raster.raster_scores(torch.from_numpy(v), tl, tcfg, impl="separable")
+    np.testing.assert_allclose(
+        bpc.numpy(), np.asarray(jraster.raster_scores(jnp.asarray(v), jl, jcfg, impl="separable")),
+        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("precision, tol", [("high", 5e-5), ("default", 9e-3)])
+def test_separable_reduced_precision_against_highest(rng, precision, tol):
+    v, _, (tl, tcfg) = _setup(rng)
+    x = torch.from_numpy(v)
+    hi = raster.raster_scores_cf(x, tl, _sep(tcfg, matmul_precision="highest"), impl="separable")
+    lo = raster.raster_scores_cf(x, tl, _sep(tcfg, matmul_precision=precision), impl="separable")
+    err = _norm(lo.numpy(), hi.numpy())
+    assert 0 < err <= tol, f"{precision}: normalised error {err:.3e} against 'highest' (limit {tol})"
+
+
+def test_separable_bf16_matches_jax(rng):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng)
+    ref = np.asarray(jraster.raster_scores_cf(
+        jnp.asarray(v), jl, jcfg, impl="separable", out_dtype=jnp.bfloat16)).astype(np.float32)
+    got = raster.raster_scores_cf(torch.from_numpy(v), tl, tcfg, impl="separable",
+                                  out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.float().numpy() - ref)
+    assert (d <= 2.0**-8 * np.abs(ref) + 1e-30).all(), float((d / (np.abs(ref) + 1e-30)).max())
+
+
+# Gradient tolerances (normalised by the largest entry), measured on this
+# setup: 'highest' 1.7e-7, 'high' 4.2e-6, 'default' 2.2e-3; JAX's gradient on the
+# CPU is the float32 one.
+@pytest.mark.parametrize("precision, tol", [("highest", 1e-5), ("high", 5e-5), ("default", 9e-3)])
+def test_separable_gradient_matches_jax(rng, precision, tol):
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng, size=64)
+    cot = rng.randn(2, 8, 64, 64).astype(np.float32)
+    f = lambda x: jnp.sum(jraster.raster_scores_cf(x, jl, jcfg, impl="separable") * cot)  # noqa: E731
+    want = np.asarray(jax.grad(f)(jnp.asarray(v)))
+    x = torch.from_numpy(v).requires_grad_(True)
+    score = raster.raster_scores_cf(x, tl, _sep(tcfg, matmul_precision=precision), impl="separable")
+    (got,) = torch.autograd.grad(score, x, torch.from_numpy(cot))
+    err = _norm(got.numpy(), want)
+    assert err <= tol, f"{precision}: gradient normalised error {err:.3e} (limit {tol})"
+
+
+def test_soft_rasterize_train_bf16_matches_jax(rng):
+    """The training render with bf16 scores (`train_score_dtype`): score_cp
+    within one bf16 ulp, s_total and the silhouette (float32 sums of the
+    same bf16 scores) at 1e-5; the gradient of a loss on both outputs
+    through the bf16 casts at 1e-2 normalised (the bf16 backward products
+    round each slot's factor gradient to 8 bits)."""
+    v, (jl, jcfg), (tl, tcfg) = _setup(rng, size=64)
+    jcfg = _sep(jcfg, train_score_dtype="bfloat16", matmul_precision="default")
+    tcfg = _sep(tcfg, train_score_dtype="bfloat16", matmul_precision="default")
+    c_score = rng.randn(2, 8, 64 * 64).astype(np.float32)
+    c_sil = rng.randn(2, 64, 64).astype(np.float32)
+
+    def jloss(x):
+        r = jraster.soft_rasterize_train(x, jl, jcfg, impl="separable")
+        return jnp.sum(r["score_cp"].astype(jnp.float32) * c_score) + jnp.sum(r["silhouette"] * c_sil), r
+
+    (_, ref), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(v))
+    x = torch.from_numpy(v).requires_grad_(True)
+    out = raster.soft_rasterize_train(x, tl, tcfg, impl="separable")
+    assert out["score_cp"].dtype == torch.bfloat16 and out["s_total"].dtype == torch.float32
+    want = np.asarray(ref["score_cp"]).astype(np.float32)
+    d = np.abs(out["score_cp"].detach().float().numpy() - want)
+    assert (d <= 2.0**-8 * np.abs(want) + 1e-30).all()
+    for k in ("s_total", "silhouette"):
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), atol=1e-5, err_msg=k)
+    loss = (out["score_cp"].float() * torch.from_numpy(c_score)).sum() + (
+        out["silhouette"] * torch.from_numpy(c_sil)).sum()
+    (got,) = torch.autograd.grad(loss, x)
+    err = _norm(got.numpy(), np.asarray(jgrad))
+    assert err <= 1e-2, err
+
+
+def test_separable_refusals(rng):
+    v, _, (tl, tcfg) = _setup(rng, batch=1, size=32)
+    x = torch.from_numpy(v)
+    with pytest.raises(ValueError, match="raster impl"):
+        raster.raster_scores_cf(x, tl, tcfg, impl="pallas")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        raster.raster_scores_cf(x, tl, tcfg, impl="separable", out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="matmul_precision"):
+        raster.RasterConfig(matmul_precision="tf32")
+    with pytest.raises(ValueError, match="train_score_dtype"):
+        raster.RasterConfig(train_score_dtype="float16")
+    # The knobs act on the separable impl only: the twin keeps float32 scores.
+    r = raster.soft_rasterize_train(x, tl, _sep(tcfg, train_score_dtype="bfloat16"), impl="torch")
+    assert r["score_cp"].dtype == torch.float32

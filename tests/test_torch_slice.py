@@ -134,7 +134,7 @@ def test_port_imports_no_jax():
     neither jax nor the JAX package."""
     code = (
         "import dataclasses, sys, torch\n"
-        "from indirect_learning_pose_shape_tpu_torch import configs, losses, predict, serve, train\n"
+        "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train\n"
         "from indirect_learning_pose_shape_tpu_torch.data import synthetic\n"
         "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network\n"
         "from indirect_learning_pose_shape_tpu_torch.ops import raster\n"
@@ -152,6 +152,8 @@ def test_port_imports_no_jax():
         "tcfg = dataclasses.replace(configs.CONFIG4_FULL, model=cfg, batch_size=2)\n"
         "_, terms = train.fit(tcfg, num_steps=1, asset=asset, device='cpu')\n"
         "assert terms['total'] > 0\n"
+        "m = evaluate.evaluate(model, consts, tcfg, num_batches=1)\n"
+        "assert 0.0 <= m['sil_iou'] <= 1.0 and m['pve'] > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'indirect_learning_pose_shape_tpu' not in sys.modules\n"
     )
@@ -162,6 +164,55 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_rot6d_forward_matches_jax(tiny_asset):
+    """The rot6d head (config4_r34, config4_large, config4_mixed): JAX
+    `forward` (train=False) against the port's, outputs and the gradient of
+    every parameter of a loss on the posed mesh, keypoints and camera."""
+    cfg_j = jnet.ModelConfig(
+        image_size=64,
+        encoder=jenc.EncoderConfig(depth=18, width=16, compute_dtype=jnp.float32),
+        ief=jief.IEFConfig(hidden_dims=(128,), rotation_format="rot6d"),
+        raster=jraster.RasterConfig(image_size=64, num_parts=24),
+    )
+    params, state, consts_j = jnet.init(jax.random.PRNGKey(2), tiny_asset, cfg_j)
+    params, state = jax.tree.map(np.asarray, (params, state))
+    rng = np.random.RandomState(3)
+    last = params["ief"]["layers"][-1]
+    last["w"] = (rng.randn(*last["w"].shape) * 2e-3).astype(np.float32)
+    images = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+
+    def jloss(p):
+        out, _ = jnet.forward(p, state, consts_j, images, cfg_j, train=False)
+        loss = jnp.sum(out["verts"] ** 2) + 1e-3 * jnp.sum(out["kp2d"]) + jnp.sum(out["pose_prior"] ** 2)
+        return loss, out
+
+    (_, ref), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    ref = jax.tree.map(np.asarray, ref)
+    jgrad = convert.jax_to_state_dict(jax.tree.map(np.asarray, jgrad), state)
+
+    cfg = net.ModelConfig(
+        image_size=64,
+        encoder=enc.EncoderConfig(depth=18, width=16, compute_dtype=torch.float32),
+        ief=ief.IEFConfig(hidden_dims=(128,), rotation_format="rot6d"),
+        raster=raster.RasterConfig(image_size=64, num_parts=24),
+    )
+    model, consts = net.init(tiny_asset, cfg, seed=1, device="cpu")
+    convert.load_jax_params(model, params, state)
+    out = net.forward(model, consts, torch.from_numpy(images), cfg)
+    assert out["pose"].shape == (2, 24 * 6)
+    assert float(np.abs(ref["theta"] - params["ief"]["mean_theta"]).max()) > 1e-3  # off the mean
+    for k, atol in (("theta", 1e-4), ("rotmats", 1e-5), ("pose_prior", 1e-4), ("verts", 1e-4),
+                    ("joints", 1e-4), ("kp2d", 5e-3)):
+        np.testing.assert_allclose(out[k].detach().numpy(), ref[k], atol=atol, err_msg=k)
+    loss = (out["verts"] ** 2).sum() + 1e-3 * out["kp2d"].sum() + (out["pose_prior"] ** 2).sum()
+    loss.backward()
+    for k, p in model.named_parameters():
+        want = jgrad[k]
+        scale = float(np.abs(want).max()) + 1e-12
+        np.testing.assert_allclose(p.grad.numpy() / scale, want / scale, atol=1e-4, err_msg=k)
+    assert float(np.abs(jgrad["ief.mean_theta"]).max()) > 0
 
 
 @pytest.mark.parametrize("name, want", [

@@ -12,6 +12,7 @@ import torch
 
 from indirect_learning_pose_shape_tpu.models import smpl as jsmpl
 from indirect_learning_pose_shape_tpu.utils import assets as jassets
+from indirect_learning_pose_shape_tpu.utils import oracle
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda
 from indirect_learning_pose_shape_tpu_torch.utils import assets
@@ -132,3 +133,47 @@ def test_asset_copy_loads_reference_npz(tiny_asset, tmp_path):
     got = assets.load_asset(path)
     for f in assets._FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(tiny_asset, f), err_msg=f)
+
+
+# --- Against the float64 numpy oracle (utils/oracle.py), as test_smpl.py
+# holds the reference: float32 model vs float64 oracle.
+
+
+def test_rodrigues_matches_oracle():
+    aa = np.random.RandomState(11).randn(17, 3).astype(np.float32)
+    got = smpl.batch_rodrigues(torch.from_numpy(aa)).numpy()
+    np.testing.assert_allclose(got, oracle.rodrigues(aa), atol=2e-6)
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_smpl_forward_matches_oracle(tiny_asset, consts, impl):
+    tc, _ = consts
+    pose, betas = _inputs(tiny_asset, seed=12)
+    out = smpl.smpl_forward(tc, torch.from_numpy(pose), torch.from_numpy(betas), impl=impl)
+    for i in range(pose.shape[0]):
+        want = oracle.smpl_forward(tiny_asset, pose[i], betas[i])
+        for k in ("verts", "joints", "kp3d"):
+            np.testing.assert_allclose(out[k][i].numpy(), want[k], atol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_smpl_pose_grad_finite_difference(tiny_asset, consts, impl):
+    """The port's autograd (the kernel's autograd Function for impl='kernel',
+    its plain backward on the CPU) against central differences of the
+    float64 oracle, at test_smpl.py's tolerance."""
+    tc, _ = consts
+    pose, betas = _inputs(tiny_asset, batch=1, seed=13)
+    p = torch.from_numpy(pose).requires_grad_(True)
+    v = smpl.smpl_forward(tc, p, torch.from_numpy(betas), impl=impl)["verts"]
+    (g,) = torch.autograd.grad(torch.sum(v**2), p)
+    pose64, betas64 = pose.astype(np.float64), betas.astype(np.float64)
+
+    def f(x):
+        return float(np.sum(oracle.smpl_forward(tiny_asset, x[0], betas64[0])["verts"] ** 2))
+
+    eps = 1e-4
+    for idx in [0, 5, 23, 47, 71]:
+        dp = np.zeros_like(pose64)
+        dp[0, idx] = eps
+        fd = (f(pose64 + dp) - f(pose64 - dp)) / (2 * eps)
+        np.testing.assert_allclose(float(g[0, idx]), fd, rtol=2e-2, atol=1e-3, err_msg=str(idx))

@@ -56,7 +56,7 @@ def batches(tiny_asset):
     scfg = jsyn.SyntheticConfig()
     key = jax.random.PRNGKey(7)
     ref = jax.tree.map(np.asarray, jax.jit(
-        lambda k: jsyn.generate_batch(k, BATCH, jconsts, jcfg, scfg)
+        lambda k: jsyn.generate_batch(k, BATCH, jconsts, jcfg, scfg, include_3d=True)
     )(key))
     # generate_batch's own splits: (theta, noise, visibility), then sample_theta's.
     k_theta, k_noise, k_vis = jax.random.split(key, 3)
@@ -70,7 +70,7 @@ def batches(tiny_asset):
 
     cfg = net.ModelConfig(image_size=SIZE, raster=raster.RasterConfig(image_size=SIZE, num_parts=24))
     consts = net.build_consts(tiny_asset, cfg, device="cpu")
-    got = synthetic.render_batch(draws, consts, cfg, synthetic.SyntheticConfig())
+    got = synthetic.render_batch(draws, consts, cfg, synthetic.SyntheticConfig(), include_3d=True)
     with torch.no_grad():
         verts = smpl.smpl_forward(consts.smpl, draws["pose"], draws["betas"])["verts"]
         v2 = camera.project_pixel(verts, draws["cam"], SIZE)
@@ -102,6 +102,38 @@ def test_render_batch_matches_jax(batches):
     assert lab_diff.mean() < 1e-3 and sil_diff.mean() < 1e-3
     # The bf16 palette mix rounds at other places in the two frameworks.
     np.testing.assert_allclose(got["image"].numpy(), ref["image"], atol=1e-2)
+
+
+def test_include_3d_matches_jax(batches):
+    """The direct-supervision targets (`include_3d`): SMPL joints and
+    vertices of the sampled pose and shape, and the rotation matrices of
+    the sampled axis-angle pose."""
+    ref, got, _ = batches
+    for k, atol in (("gt_joints3d", 1e-5), ("gt_verts", 1e-5), ("gt_rotmats", 1e-6)):
+        assert got[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), ref[k], atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("specs", [
+    ["pose_std=0.35"], ["cam_scale_range=0.5,1.3", "kp_visibility=0.8"], ["image_noise=0"],
+])
+def test_apply_overrides_matches_jax(specs):
+    got = synthetic.apply_overrides(synthetic.SyntheticConfig(), specs)
+    want = jsyn.apply_overrides(jsyn.SyntheticConfig(), specs)
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_eval_suites_and_override_refusals():
+    assert synthetic.EVAL_SUITES == jsyn.EVAL_SUITES
+    base = synthetic.SyntheticConfig()
+    assert synthetic.apply_overrides(base, synthetic.EVAL_SUITES["plain"]) == base
+    for name in ("hard", "hardapp"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            synthetic.apply_overrides(base, synthetic.EVAL_SUITES[name])
+    for bad in ("nope=1", "pose_std", "cam_scale_range=1", "targets=soft2", "pose_std=x"):
+        with pytest.raises(ValueError, match="synthetic override"):
+            synthetic.apply_overrides(base, [bad])
 
 
 def test_sample_draws_are_seeded(tiny_asset):

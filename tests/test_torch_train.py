@@ -24,7 +24,7 @@ from indirect_learning_pose_shape_tpu.models import encoder as jenc
 from indirect_learning_pose_shape_tpu.models import ief as jief
 from indirect_learning_pose_shape_tpu.models import network as jnet
 from indirect_learning_pose_shape_tpu.ops import raster as jraster
-from indirect_learning_pose_shape_tpu_torch import configs, predict, train
+from indirect_learning_pose_shape_tpu_torch import configs, evaluate, predict, train
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief
 from indirect_learning_pose_shape_tpu_torch.models import network as net
@@ -138,22 +138,211 @@ def test_train_loss_over_steps_matches_jax(runs):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("lr_schedule", "cosine"), ("grad_clip_norm", 1.0), ("weight_decay", 1e-4),
-    ("ema_decay", 0.999), ("steps_per_call", 4), ("checkpoint_every", 100),
-    ("pretrained", "enc18.npz"), ("mean_params", "mean.npz"), ("render_devices", 2),
-    ("num_devices", 4),
+    ("checkpoint_every", 100), ("pretrained", "enc18.npz"), ("mean_params", "mean.npz"),
+    ("render_devices", 2), ("num_devices", 4),
 ])
 def test_unported_train_fields_are_refused(field, value):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item"):
         dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
 
 
-def test_presets_are_train_configs():
-    for name, cfg in configs.PRESETS.items():
-        assert isinstance(cfg, configs.TrainConfig), name
-        assert isinstance(cfg.model, net.ModelConfig) and cfg.batch_size == 32
-    assert configs.CONFIG4_FULL.model.image_size == 256
-    assert configs.CONFIG4_FULL.loss_weight_dict == dict(jconfigs.CONFIG4_FULL.loss_weights)
+@pytest.mark.parametrize("field, value", [
+    ("lr_schedule", "linear"), ("steps_per_call", 0), ("ema_decay", 1.0),
+])
+def test_bad_optimizer_fields_are_refused(field, value):
+    with pytest.raises(ValueError, match=field):
+        dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+
+
+_UNPORTED_PRESETS = {"config4_robust", "config5_data_parallel"}  # items 12 and 16
+
+
+def _fields(obj, names):
+    return {n: getattr(obj, n) for n in names}
+
+
+@pytest.mark.parametrize("name", sorted(configs.PRESETS))
+def test_presets_are_train_configs(name):
+    """Each port preset carries the reference preset's fields: the run's,
+    the encoder's, IEF's, the raster's and the synthetic stream's."""
+    assert set(configs.PRESETS) == set(jconfigs.PRESETS) - _UNPORTED_PRESETS
+    cfg, ref = configs.PRESETS[name], jconfigs.PRESETS[name]
+    assert isinstance(cfg, configs.TrainConfig) and isinstance(cfg.model, net.ModelConfig)
+    run = ("batch_size", "learning_rate", "lr_schedule", "warmup_steps", "grad_clip_norm",
+           "weight_decay", "num_steps", "seed", "loss_weights", "log_every", "ema_decay",
+           "steps_per_call")
+    assert _fields(cfg, run) == _fields(ref, run)
+    assert _fields(cfg.model, ("image_size", "smpl_impl", "raster_impl")) == _fields(
+        ref.model, ("image_size", "smpl_impl", "raster_impl"))
+    e = ("depth", "width", "fold_bn_eval")
+    assert _fields(cfg.model.encoder, e) == _fields(ref.model.encoder, e)
+    assert str(cfg.model.encoder.compute_dtype).removeprefix("torch.") == np.dtype(
+        ref.model.encoder.compute_dtype).name
+    i = ("num_iterations", "hidden_dims", "rotation_format", "num_cam")
+    assert _fields(cfg.model.ief, i) == _fields(ref.model.ief, i)
+    r = [f.name for f in dataclasses.fields(raster.RasterConfig)]
+    assert _fields(cfg.model.raster, r) == _fields(ref.model.raster, r)
+    sy = [f.name for f in dataclasses.fields(type(cfg.synthetic))]
+    assert _fields(cfg.synthetic, sy) == _fields(ref.synthetic, sy)
+
+
+# --- The update: clip, Adam/AdamW at the scheduled rate, EMA ---------------
+
+
+class _Leaves(torch.nn.Module):
+    """A few parameters of several shapes, for the update alone."""
+
+    def __init__(self, arrays):
+        super().__init__()
+        self.p = torch.nn.ParameterList([torch.nn.Parameter(torch.from_numpy(a.copy())) for a in arrays])
+
+
+def _optax_run(jcfg, params, grads):
+    """The reference's update (its make_optimizer, then the EMA of its
+    train_step) over the gradient sequence; params and EMA after each step."""
+    opt = jtrain.make_optimizer(jcfg)
+    p = {str(i): jnp.asarray(a) for i, a in enumerate(params)}
+    state, ema, out = opt.init(p), dict(p), []
+    for g in grads:
+        u, state = opt.update({str(i): jnp.asarray(a) for i, a in enumerate(g)}, state, p)
+        p = optax.apply_updates(p, u)
+        d = jcfg.ema_decay
+        ema = jax.tree.map(lambda e, q: d * e + (1.0 - d) * q, ema, p)
+        out.append(([np.asarray(p[str(i)]) for i in range(len(params))],
+                    [np.asarray(ema[str(i)]) for i in range(len(params))]))
+    return out
+
+
+UPDATE_CASES = {
+    "adam": {},
+    "adamw": dict(weight_decay=0.05),
+    "cosine": dict(lr_schedule="cosine", warmup_steps=2, num_steps=5),
+    "clip_hit": dict(grad_clip_norm=0.5),
+    "clip_miss": dict(grad_clip_norm=1e3),
+    "mixed_ema": dict(lr_schedule="cosine", warmup_steps=2, num_steps=5, grad_clip_norm=1.0,
+                      weight_decay=0.01, ema_decay=0.9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
+def test_update_matches_optax(case):
+    """Six updates from the same parameters and gradients (numpy, seeded)
+    against optax: the parameters and the EMA after every step at 1e-6
+    absolute (parameters ~1, learning rate 1e-2)."""
+    kw = dict(UPDATE_CASES[case], learning_rate=1e-2)
+    kw.setdefault("ema_decay", 0.5)
+    cfg = dataclasses.replace(configs.TrainConfig(), **kw)
+    jcfg = dataclasses.replace(jconfigs.TrainConfig(), **kw)
+    rng = np.random.RandomState(4)
+    shapes = [(8, 4), (4,), (3, 3, 2)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) * 0.3 for s in shapes] for _ in range(6)]
+    ref = _optax_run(jcfg, params, grads)
+    ts = train.new_state(_Leaves(params), cfg)
+    for step, g in enumerate(grads):
+        for p, a in zip(ts.model.parameters(), g):
+            p.grad = torch.from_numpy(a.copy())
+        train.apply_update(ts, cfg)
+        want_p, want_e = ref[step]
+        for name, got, want in (("param", list(ts.model.parameters()), want_p),
+                                ("ema", list(ts.ema.values()), want_e)):
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a.detach().numpy(), b, atol=1e-6, err_msg=f"{case} step {step} {name}")
+
+
+@pytest.mark.parametrize("warmup", [0, 3])
+def test_lr_schedule_matches_optax(warmup):
+    jcfg = jconfigs.TrainConfig(lr_schedule="cosine", warmup_steps=warmup, num_steps=8)
+    cfg = configs.TrainConfig(lr_schedule="cosine", warmup_steps=warmup, num_steps=8)
+    sched = optax.warmup_cosine_decay_schedule(0.0, 1.0, warmup, max(8, warmup + 1))
+    for count in range(12):
+        np.testing.assert_allclose(train.lr_factor(count, cfg), float(sched(count)), atol=1e-7)
+    assert train.lr_factor(5, dataclasses.replace(cfg, lr_schedule="constant")) == 1.0
+    assert jcfg.num_steps == cfg.num_steps
+
+
+def test_cosine_first_update_has_lr_zero():
+    """optax evaluates the schedule at the count before the increment: the
+    first update leaves every parameter as it was (AdamW's decay too), the
+    second moves them."""
+    rng = np.random.RandomState(5)
+    params = [rng.randn(6, 3).astype(np.float32), rng.randn(3).astype(np.float32)]
+    cfg = configs.TrainConfig(lr_schedule="cosine", warmup_steps=2, num_steps=10,
+                              weight_decay=0.1, learning_rate=1e-2)
+    ts = train.new_state(_Leaves(params), cfg)
+    for step in range(2):
+        for p in ts.model.parameters():
+            p.grad = torch.ones_like(p)
+        train.apply_update(ts, cfg)
+        same = all(np.array_equal(p.detach().numpy(), a) for p, a in zip(ts.model.parameters(), params))
+        assert same == (step == 0), step
+
+
+def test_clip_is_optax_form():
+    """Below the limit the gradients are untouched (no multiply); above it
+    each is g / norm * limit."""
+    g = [torch.tensor([3.0, 4.0]), torch.tensor([0.0])]
+    train.clip_by_global_norm(g, 10.0)
+    assert torch.equal(g[0], torch.tensor([3.0, 4.0]))
+    train.clip_by_global_norm(g, 1.0)
+    np.testing.assert_allclose(g[0].numpy(), [3.0 / 5.0, 4.0 / 5.0], rtol=1e-7)
+
+
+def _tiny_cfg(**kw):
+    model = dataclasses.replace(
+        _port_cfg().model, image_size=32, raster=raster.RasterConfig(image_size=32),
+        encoder=enc.EncoderConfig(depth=18, width=8, compute_dtype=torch.float32),
+        ief=ief.IEFConfig(hidden_dims=(16,), rotation_format="rot6d"),
+    )
+    return dataclasses.replace(configs.CONFIG4_MIXED, model=model, batch_size=2, **kw)
+
+
+def test_steps_per_call_equals_single_calls(tiny_asset):
+    """fit with steps_per_call=4 (a call of 4, then the remainder in one
+    call of 2) takes the same steps as single calls, bitwise, and logs once
+    per call that took a step at a log_every multiple, and at the end."""
+    cfg = _tiny_cfg(num_steps=6, warmup_steps=2, ema_decay=0.9, log_every=2)
+    logs = {1: [], 4: []}
+    runs = {k: train.fit(dataclasses.replace(cfg, steps_per_call=k), asset=tiny_asset, device="cpu",
+                         log=logs[k].append)[0] for k in (1, 4)}
+    assert runs[1].step == runs[4].step == 6
+    for (k, a), b in zip(runs[1].model.state_dict().items(), runs[4].model.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert all(torch.equal(runs[1].ema[k], runs[4].ema[k]) for k in runs[1].ema)
+    assert [r["step"] for r in logs[1]] == [0, 2, 4, 5]
+    assert [r["step"] for r in logs[4]] == [3, 5]
+    assert logs[1][-1] == logs[4][-1]
+
+
+def test_direct_3d_weights_train(tiny_asset):
+    """A step with the mixed recipe's 3D weights (j3d=5, rotmat=1,
+    betas_l2=0.02) runs on the synthetic stream: make_batch emits the 3D
+    targets when a j3d, v3d or rotmat weight is set, and only then."""
+    cfg = _tiny_cfg(num_steps=1)
+    consts = net.build_consts(tiny_asset, cfg.model, device="cpu")
+    with_3d = train.make_batch(0, 0, 2, consts, cfg)
+    assert {"gt_joints3d", "gt_verts", "gt_rotmats"} <= set(with_3d)
+    assert with_3d["gt_rotmats"].shape == (2, 24, 3, 3) and with_3d["gt_verts"].shape == (2, 864, 3)
+    plain = train.make_batch(0, 0, 2, consts, configs.CONFIG4_FULL)
+    assert not {"gt_joints3d", "gt_verts", "gt_rotmats"} & set(plain)
+    _, terms = train.fit(cfg, asset=tiny_asset, device="cpu")
+    assert {"j3d", "rotmat", "betas_l2"} <= set(terms) and np.isfinite(terms["total"])
+
+
+def test_ema_model_carries_ema_and_live_bn(tiny_asset):
+    cfg = _tiny_cfg(num_steps=2, ema_decay=0.5)
+    ts, _ = train.fit(cfg, asset=tiny_asset, device="cpu")
+    m = train.ema_model(ts)
+    for k, p in m.named_parameters():
+        assert torch.equal(p, ts.ema[k]), k
+    live = dict(ts.model.named_buffers())
+    for k, b in m.named_buffers():
+        assert torch.equal(b, live[k]), k
+    assert any(not torch.equal(p, q) for p, q in zip(m.parameters(), ts.model.parameters()))
+    with pytest.raises(ValueError, match="ema_decay"):
+        train.ema_model(train.new_state(ts.model, dataclasses.replace(cfg, ema_decay=0.0)))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        predict.load_model(cfg.model, asset=tiny_asset, device="cpu", ema=True)
 
 
 def test_batches_are_seeded_by_seed_and_step(tiny_asset):
@@ -166,6 +355,26 @@ def test_batches_are_seeded_by_seed_and_step(tiny_asset):
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["gt_pose"], c["gt_pose"])
     assert not torch.equal(a["gt_pose"], d["gt_pose"])
+
+
+def test_cli_optimizer_flags(capsys):
+    """The optimizer menu from the CLI: config4_mixed (ResNet-34, full
+    width) at a small batch and image size, AdamW, cosine, clipping, EMA,
+    two steps in one call, a loss-weight override; then the refusals."""
+    assert train.main([
+        "--preset", "config4_mixed", "--steps", "2", "--batch-size", "1", "--image-size", "32",
+        "--lr-schedule", "cosine", "--warmup-steps", "1", "--grad-clip", "1.0",
+        "--weight-decay", "1e-4", "--ema-decay", "0.9", "--steps-per-call", "2",
+        "--loss-weight", "v3d=1", "--log-every", "1", "--synthetic", "pose_std=0.2",
+        "--device", "cpu",
+    ]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert [r["step"] for r in lines] == [1]
+    assert {"j3d", "v3d", "rotmat", "betas_l2"} <= set(lines[0]) and np.isfinite(lines[0]["total"])
+    for bad in (["--loss-weight", "nope=1"], ["--steps-per-call", "0"], ["--ema-decay", "1.5"],
+                ["--synthetic", "targets=hard"], ["--synthetic", "nope=1"]):
+        with pytest.raises(SystemExit):
+            train.main(["--steps", "1", "--device", "cpu", *bad])
 
 
 def test_cli_prints_json_lines(capsys):
@@ -192,6 +401,7 @@ def test_entry_points_default_to_cuda(tiny_asset):
         lambda: train.init_state(cfg, tiny_asset),
         lambda: train.fit(cfg, num_steps=1, asset=tiny_asset),
         lambda: train.main(["--steps", "1"]),
+        lambda: evaluate.main(["--batches", "1"]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
