@@ -62,10 +62,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
    of the model (its own counted launches: 3 LBS and 2 raster forward a
    batch) and of its EMA, and of the model with the plain versions forced,
    which must agree with the kernels' metrics.
+8. The config4_robust recipe at full width (config4_mixed's, on hard
+   z-buffered targets with textured backgrounds, palette jitter, shading
+   and occluders; EMA 0.999): the hard raster on the step's bodies against
+   the CPU run of the same function and the float64 oracle, timed dense and
+   culled; counted fused steps (2 LBS, 1 raster forward, 1 raster backward
+   launches each; the hard raster replaces the target render) with one
+   step's device time; a checkpoint saved, restored bitwise and timed;
+   `train.fit` to step 2 with checkpoints, then resumed to 4 (the restored
+   state bitwise the first run's, the resumed batch bitwise the straight
+   run's, the losses at step 4 within RESUME_TOL of a straight 4-step run);
+   the JSONL and TensorBoard files read back; `tools/quality_eval.py` on the
+   checkpoint and its EMA on the plain, hard and hardapp suites (3 seeds x 1
+   batch), and the kernels against the plain versions on hardapp.
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
-training main path, on the config4_mixed steps and in its evaluation, its
+training main path, on the config4_mixed steps and in its evaluation, on
+the config4_robust steps (`launches_robust`), its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -79,22 +93,29 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
+import os
 import statistics
+import struct
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train
+from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
-from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
+from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
-from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import smi_line
-from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms
-from indirect_learning_pose_shape_tpu_torch.utils import assets
+from indirect_learning_pose_shape_tpu_torch.tools import quality_eval
+from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import device_summary, smi_line
+from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms, events_ms
+from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics
+from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 REQUESTS = (1, 3, 8, 32)
@@ -147,6 +168,28 @@ EVAL_BATCHES = 4
 EVAL_ABS = ("sil_iou", "part_acc", "miou")
 EVAL_ABS_TOL = 1e-3
 EVAL_REL_TOL = 1e-3
+# The config4_robust phase: warm-up and counted fused steps; fit to step
+# RESUME_K, resume to 2 * RESUME_K, against a straight run of 2 * RESUME_K.
+ROBUST_WARMUP = 3
+ROBUST_STEPS = 3
+RESUME_K = 2
+PER_STEP_ROBUST = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1}
+PER_EVAL_BATCH_HARD = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 1}  # hard targets: no target render
+# The resumed run's loss terms at step 2k against the straight run's,
+# relative: cuDNN's backward is not bitwise repeatable, so two runs of the
+# same steps differ by its rounding (not bitwise as on the CPU).
+RESUME_TOL = 1e-3
+# The hard raster on the card against the CPU run of the same function, and
+# against the float64 oracle (tests/test_raster_hard.py's limit).
+HARD_AGREE = 0.999
+ORACLE_AGREE = 0.995
+HARD_K_FACES = 512  # the culled mode timed beside the dense one
+# The CPU run is cut into pieces of this many images and face chunks of
+# HARD_CPU_CHUNK, which keep its temporaries in the CPU's caches.
+HARD_CPU_IMAGES = 2
+HARD_CPU_CHUNK = 8
+QUALITY_SEEDS = (123, 231, 312)
+QUALITY_SUITES = ("plain", "hard", "hardapp")
 
 # The card's limits for bounds (H100 SXM, at its 700 W limit): HBM 3.35 TB/s
 # and 67 TFLOP/s float32 outside the tensor cores (NVIDIA's data sheet);
@@ -162,26 +205,6 @@ FMA_PER_S = FP32_FLOP_PER_S / 2
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def events_ms(fn, iters: int, reps: int = 3) -> float:
-    """Device ms per call of `fn` between CUDA events, median over `reps`
-    runs of `iters` calls, for work that cannot be captured in a graph (an
-    autograd backward). The calls are queued back to back, so the host's
-    launches hide behind device work of a millisecond or more."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / iters)
-    return statistics.median(times)
 
 
 def request_ms(fn, reps: int) -> float:
@@ -964,6 +987,298 @@ def mixed_phase(asset, smi) -> dict:
     return {"launches": launches, "ms_per_step": med, "eval_launches": eval_launches}
 
 
+def same_state(a, b, devices: bool, where: str = "") -> None:
+    """Check two nested state dicts bitwise equal, and each pair of tensors
+    on one device when `devices`."""
+    if torch.is_tensor(a):
+        check(torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a.cpu(), b.cpu()), f"restored state differs at {where}")
+        check(not devices or a.device == b.device, f"restored state at {where} on {b.device}, not {a.device}")
+    elif isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"restored state's keys differ at {where}")
+        for k in a:
+            same_state(a[k], b[k], devices, f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"restored state's lengths differ at {where}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_state(x, y, devices, f"{where}[{i}]")
+    else:
+        check(a == b, f"restored state differs at {where}: {a!r} != {b!r}")
+
+
+@contextlib.contextmanager
+def scaled_init():
+    """Inside the block `train.init_state` (so `train.fit`) starts from the
+    seed-0 model with its IEF output layer scaled by 0.01 (see main), the
+    EMA starting there too."""
+    plain = train.init_state
+
+    def scaled(cfg, *args, **kwargs):
+        ts, consts = plain(cfg, *args, **kwargs)
+        with torch.no_grad():
+            ts.model.ief.layers[-1].weight.mul_(0.01)
+        return train.new_state(ts.model, cfg, cfg.seed), consts
+
+    train.init_state = scaled
+    try:
+        yield
+    finally:
+        train.init_state = plain
+
+
+@contextlib.contextmanager
+def batches_at(step: int, store: list):
+    """Inside the block each batch `train.make_batch` makes for `step` is
+    appended to `store`."""
+    plain = train.make_batch
+
+    def recording(seed, s, *args):
+        batch = plain(seed, s, *args)
+        if s == step:
+            store.append(batch)
+        return batch
+
+    train.make_batch = recording
+    try:
+        yield
+    finally:
+        train.make_batch = plain
+
+
+def tb_records(path: str) -> int:
+    """The number of records of a TensorBoard event file, each record's
+    length and payload CRC32C checked."""
+    with open(path, "rb") as f:
+        data = f.read()
+    n, i = 0, 0
+    while i < len(data):
+        header = data[i : i + 8]
+        (size,) = struct.unpack("<Q", header)
+        payload = data[i + 12 : i + 12 + size]
+        check(struct.unpack("<I", data[i + 8 : i + 12])[0] == metrics._masked_crc(header),
+              f"{path}: record {n} length CRC")
+        check(struct.unpack("<I", data[i + 12 + size : i + 16 + size])[0] == metrics._masked_crc(payload),
+              f"{path}: record {n} payload CRC")
+        n, i = n + 1, i + 16 + size
+    return n
+
+
+def hard_raster_phase(cfg, consts, smi) -> dict:
+    """The hard raster at the robust step's batch, on its own bodies (batch 0
+    of the stream): against the CPU run of the same function and, on one
+    image, the float64 oracle; timed dense (as the step runs it) and with
+    HARD_K_FACES slots a tile, whose overflow is printed."""
+    B, S, scfg = cfg.batch_size, cfg.model.image_size, cfg.synthetic
+    gen = torch.Generator(device="cuda").manual_seed(train.step_seed(cfg.seed, 0))
+    draws = synthetic.sample_draws(gen, B, consts, scfg, S)
+    verts = smpl.smpl_forward(consts.smpl, draws["pose"], draws["betas"], impl=cfg.model.smpl_impl)["verts"]
+    v2, vz, light = camera.project_pixel(verts, draws["cam"], S), verts[..., 2], draws["light"]
+    card = raster_hard.hard_raster(v2, vz, consts.hard, S, with_shade=True, light=light)
+    torch.cuda.synchronize()
+    hc_cpu = raster_hard.HardConsts(consts.hard.faces.cpu(), consts.hard.face_class.cpu())
+    t0 = time.perf_counter()
+    pieces = [
+        raster_hard.hard_raster(v2[i : i + HARD_CPU_IMAGES].cpu(), vz[i : i + HARD_CPU_IMAGES].cpu(), hc_cpu,
+                                S, chunk=HARD_CPU_CHUNK, with_shade=True, light=light[i : i + HARD_CPU_IMAGES].cpu())
+        for i in range(0, B, HARD_CPU_IMAGES)
+    ]
+    cpu_s = time.perf_counter() - t0
+    cpu = {k: torch.cat([p[k] for p in pieces]) for k in ("part_labels", "silhouette", "shade")}
+    labels = card["part_labels"].cpu()
+    fg = float(card["silhouette"].mean())
+    check(0.01 < fg < 0.9, f"hard raster: silhouette covers {fg} of the pixels")
+    agree = float((labels == cpu["part_labels"]).double().mean())
+    check(agree >= HARD_AGREE, f"hard raster, card vs CPU at B={B}: labels agree on {agree} < {HARD_AGREE}")
+    check(torch.equal(card["silhouette"].cpu(), cpu["silhouette"]), f"hard raster, card vs CPU at B={B}: silhouettes differ")
+    shade_err = max_err(card["shade"].cpu(), cpu["shade"])
+    lab, _ = raster_hard.hard_raster_oracle(
+        v2[0].cpu().numpy(), vz[0].cpu().numpy(), hc_cpu.faces.numpy(), hc_cpu.face_class.numpy(), S
+    )
+    o_agree = float((lab == labels[0].numpy()).mean())
+    check(o_agree >= ORACLE_AGREE, f"hard raster vs the float64 oracle: labels agree on {o_agree} < {ORACLE_AGREE}")
+    print(
+        f"[robust] hard raster B={B} {S}^2, {consts.hard.faces.shape[0]} faces, silhouette {fg:.4f} of the "
+        f"pixels: card vs CPU labels agree on {agree:.6f}, silhouettes equal, shade max abs err "
+        f"{shade_err:.3e} (CPU run {cpu_s:.1f} s); image 0 vs the float64 oracle {o_agree:.6f}"
+    )
+
+    def run(k=None):
+        return raster_hard.hard_raster(v2, vz, consts.hard, S, k_faces=k, with_shade=True, light=light)
+
+    culled = run(HARD_K_FACES)
+    overflow = int(culled["overflow"])
+    c_agree = float((culled["part_labels"] == card["part_labels"]).double().mean())
+    dense_ms, culled_ms = events_ms(run, 3), events_ms(lambda: run(HARD_K_FACES), 3)
+    print(
+        f"[robust] hard raster B={B} {S}^2 with shade: dense {dense_ms:.3f} ms; k_faces={HARD_K_FACES} "
+        f"{culled_ms:.3f} ms, overflow {overflow} faces, labels as dense on {c_agree:.6f} [{smi}]"
+    )
+    return {"dense_ms": dense_ms, "k_faces_ms": culled_ms, "k_faces_overflow": overflow,
+            "card_vs_cpu": agree, "oracle": o_agree}
+
+
+def robust_phase(asset, smi) -> dict:
+    """config4_robust at full width (ResNet-34, rot6d, b32, 256², hard
+    targets, textured backgrounds, palette jitter, shading, occluders) with
+    an EMA of decay 0.999, from the scaled seed-0 weights: the hard raster
+    checked and timed; counted fused steps (2 LBS, 1 raster forward, 1 raster
+    backward launches each); a checkpoint's save and restore; `fit` to step
+    RESUME_K, resumed to 2 * RESUME_K, against a straight run; the metrics
+    files read back; `tools/quality_eval.py` on the checkpoint and its EMA on
+    each suite, and the kernels against the plain versions on one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.CONFIG4_ROBUST, ema_decay=0.999)
+    B, k = cfg.batch_size, RESUME_K
+    with scaled_init():
+        ts, consts = train.init_state(cfg, asset=asset, device="cuda")
+    hard = hard_raster_phase(cfg, consts, smi)
+
+    for _ in range(ROBUST_WARMUP):
+        train.fused_step(ts, consts, cfg)
+    torch.cuda.synchronize()
+    # --- Counted: fused steps of the robust recipe. --------------------------
+    _build.reset_counts()
+    times, totals = [], []
+    for _ in range(ROBUST_STEPS):
+        t0 = time.perf_counter()
+        terms = train.fused_step(ts, consts, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(terms["total"]))
+    launches = _build.counts()
+    for name, per in PER_STEP_ROBUST.items():
+        check(launches.get(name, 0) == per * ROBUST_STEPS,
+              f"config4_robust: kernel {name} launched {launches.get(name, 0)} times in {ROBUST_STEPS} steps")
+    check(all(np.isfinite(totals)), f"config4_robust: non-finite loss {totals}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train.fused_step(ts, consts, cfg)
+        torch.cuda.synchronize()
+    dev = device_summary(prof, 1)
+    med = statistics.median(times)
+    print(
+        f"[robust] config4_robust B={B} (ResNet-34, rot6d, hard targets, hardapp appearance, EMA "
+        f"{cfg.ema_decay}): launches over {ROBUST_STEPS} steps {launches}; median {med:.3f} ms/step "
+        f"({B / med * 1e3:.1f} img/s), device {dev['device_ms']:.3f} ms and {dev['kernels']:.0f} kernels "
+        f"in one profiled step; loss {totals[0]:.4f} -> {totals[-1]:.4f} [{smi}]"
+    )
+
+    with tempfile.TemporaryDirectory(prefix="ilps_robust_") as work:
+        # --- A checkpoint of this state: save, restore, bitwise. -------------
+        ckpt = Checkpointer(os.path.join(work, "timing"))
+        t0 = time.perf_counter()
+        ckpt.save(ts.step, train.state_dict(ts))
+        snapshot_s = time.perf_counter() - t0
+        ckpt.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        saved = ckpt.restore(map_location="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same_state(train.state_dict(ts), saved, devices=False)
+        mb = os.path.getsize(os.path.join(work, "timing", str(ts.step), "state.pt")) / 1e6
+        print(
+            f"[robust] checkpoint of step {ts.step}: {mb:.1f} MB; save {save_s:.3f} s ({snapshot_s:.3f} s "
+            f"blocking the caller, the rest on the writer thread), restore to the card {restore_s:.3f} s; "
+            f"restored state bitwise equal"
+        )
+        del saved
+
+        # --- fit to k, resume to 2k, against a straight 2k. -----------------
+        base = dataclasses.replace(cfg, num_steps=2 * k, log_every=1)
+        split = dataclasses.replace(
+            base, checkpoint_every=k, checkpoint_dir=os.path.join(work, "split"),
+            metrics_path=os.path.join(work, "metrics.jsonl"), tensorboard_dir=os.path.join(work, "tb"),
+        )
+        with scaled_init():
+            ts_k, _ = train.fit(split, num_steps=k, asset=asset, device="cuda")
+            fresh, _ = train.init_state(split, asset=asset, device="cuda")
+        train.load_state_dict(fresh, Checkpointer(split.checkpoint_dir).restore(map_location="cpu"))
+        check(fresh.step == k, f"restored step {fresh.step} != {k}")
+        same_state(train.state_dict(ts_k), train.state_dict(fresh), devices=True)
+        del fresh, ts_k
+        first_resumed, first_straight = [], []
+        with scaled_init(), batches_at(k, first_resumed):
+            ts_r, terms_r = train.fit(split, asset=asset, device="cuda")
+        with scaled_init(), batches_at(k, first_straight):
+            ts_s, terms_s = train.fit(base, asset=asset, device="cuda")
+        check(ts_r.step == ts_s.step == 2 * k, f"steps {ts_r.step}, {ts_s.step} != {2 * k}")
+        check(len(first_resumed) == len(first_straight) == 1, "the batch of the resumed step was not made once")
+        (b_r,), (b_s,) = first_resumed, first_straight
+        check(set(b_r) == set(b_s) and all(torch.equal(b_r[key], b_s[key]) for key in b_s),
+              f"the resumed run's batch of step {k} differs from the straight run's")
+        rel = {t: abs(terms_r[t] - v) / max(abs(v), 1e-6) for t, v in terms_s.items()}
+        worst = max(rel, key=rel.get)
+        check(set(terms_r) == set(terms_s) and rel[worst] <= RESUME_TOL,
+              f"resumed vs straight run at step {2 * k}: {worst} rel err {rel[worst]} > {RESUME_TOL}")
+        print(
+            f"[robust] fit to step {k} (checkpoint_every={k}), restored state bitwise equal to the run's "
+            f"(parameters, BN statistics, Adam moments and counts, schedule, EMA, step, seed); resumed to "
+            f"{2 * k}: its batch of step {k} bitwise the straight run's; loss terms at step {2 * k} against "
+            f"the straight run's: worst {worst} rel err {rel[worst]:.3e} (tolerance {RESUME_TOL:g})"
+        )
+        del ts_r, ts_s, first_resumed, first_straight, b_r, b_s
+
+        # --- The metrics files: one line and one event a logged step. --------
+        with open(split.metrics_path) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()]
+        check([r["step"] for r in lines] == list(range(2 * k)), f"metrics JSONL steps {[r['step'] for r in lines]}")
+        events = sorted(os.listdir(split.tensorboard_dir))
+        records = [tb_records(os.path.join(split.tensorboard_dir, e)) for e in events]
+        check(records == [1 + k, 1 + k], f"TensorBoard files {events}: records {records}, not {1 + k} each")
+        print(f"[robust] metrics: {len(lines)} JSONL lines, TensorBoard files with {records} records, every CRC valid")
+
+        # --- tools/quality_eval.py on the checkpoint and its EMA. -----------
+        summaries, q_launches = {}, {}
+        for suite in QUALITY_SUITES:
+            for ema in (False, True):
+                argv = ["--preset", "config4_robust", "--checkpoint", split.checkpoint_dir, "--eval-suite", suite,
+                        "--batches", "1", "--seeds", *map(str, QUALITY_SEEDS)] + (["--ema"] if ema else [])
+                out = io.StringIO()
+                _build.reset_counts()
+                with contextlib.redirect_stdout(out):
+                    check(quality_eval.main(argv) == 0, f"quality_eval {argv} failed")
+                q_launches[suite, ema] = _build.counts()
+                res = json.loads(out.getvalue().strip().splitlines()[-1])
+                summaries[suite, ema] = res["metrics"]
+                for m, v in res["metrics"].items():
+                    check(np.isfinite(v["mean"]) and np.isfinite(v["pm"]), f"quality_eval {suite}: {m} {v}")
+                print(
+                    f"[quality] step {2 * k} {'EMA' if ema else 'model'}, suite {suite}, "
+                    f"{len(QUALITY_SEEDS)} seeds x 1 x {B} images: "
+                    + ", ".join(f"{m} {v['mean']:.5f}±{v['pm']:.5f}" for m, v in sorted(res["metrics"].items()))
+                )
+        check(summaries["plain", False] != summaries["hardapp", False],
+              "quality_eval: the plain and hardapp suites scored the same stream")
+        n = len(QUALITY_SEEDS)
+        for (suite, ema), got in q_launches.items():
+            want = {lbs_cuda.KERNEL: 3 * n, raster_cuda.KERNEL: 2 * n} if suite == "plain" else {
+                name: per * n for name, per in PER_EVAL_BATCH_HARD.items()}
+            check(all(got.get(name, 0) == c for name, c in want.items()) and not got.get(raster_cuda.KERNEL_BWD),
+                  f"quality_eval {suite}: launches {got}, not {want}")
+
+        cfg_q, _ = evaluate.eval_config(configs.CONFIG4_ROBUST, suite="hardapp")
+        model, consts_q = predict.load_model(cfg_q.model, asset=asset, device="cuda",
+                                             checkpoint_dir=split.checkpoint_dir)
+        plain = dataclasses.replace(cfg_q, model=dataclasses.replace(cfg_q.model, smpl_impl="torch", raster_impl="torch"))
+        _, k_sum = quality_eval.protocol(model, consts_q, cfg_q, QUALITY_SEEDS, 1)
+        _, p_sum = quality_eval.protocol(model, consts_q, plain, QUALITY_SEEDS, 1)
+        diff = {m: abs(k_sum[m]["mean"] - p_sum[m]["mean"]) / (1.0 if m in EVAL_ABS else max(abs(p_sum[m]["mean"]), 1e-12))
+                for m in k_sum}
+        for m, d in diff.items():
+            check(d <= (EVAL_ABS_TOL if m in EVAL_ABS else EVAL_REL_TOL),
+                  f"quality_eval hardapp, kernels vs plain versions: {m} differs by {d}")
+        print(
+            "[quality] hardapp, kernels vs plain versions: " + ", ".join(f"{m} {v:.2e}" for m, v in sorted(diff.items()))
+            + f" (absolute for {', '.join(EVAL_ABS)}, relative otherwise); launches per call {q_launches['hardapp', False]}"
+        )
+    torch.cuda.empty_cache()
+    print(f"[robust] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "ms_per_step": med, "device_ms": dev["device_ms"], "hard": hard,
+            "checkpoint_s": {"save": save_s, "snapshot": snapshot_s, "restore": restore_s, "mb": mb}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1001,6 +1316,7 @@ def main() -> int:
     serve_launches = serving_phase(cfg, model, consts, rng, smi)
     tr = training_phase(asset, smi)
     mixed = mixed_phase(asset, smi)
+    robust = robust_phase(asset, smi)
 
     def entry(name, source, replaces, **numbers):
         return dict(
@@ -1011,6 +1327,7 @@ def main() -> int:
             launches_serve=serve_launches.get(name, 0),
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),
+            launches_robust=robust["launches"].get(name, 0),
             **{"library_ms": None, **numbers},
         )
 

@@ -20,11 +20,13 @@ kernel → weak-perspective projection) plus ``predict.render_silhouette``
 training step, ``train.fused_step`` (on-device synthetic batch →
 ``forward_train`` → ``losses.total_loss`` → backward through the raster
 backward kernel → the reference's optimizer menu: clipping, Adam/AdamW,
-cosine warm-up, EMA), with every preset that needs no checkpoints, hard
-targets, disk data or more than one GPU (``config4_mixed`` among them);
-the reference's default ``separable`` raster with bf16 scores; and
-``evaluate`` on the synthetic stream. Entry points run on CUDA unless the
-caller asks for the CPU.
+cosine warm-up, EMA), with every preset that needs no disk data or more
+than one GPU (``config4_mixed``, and ``config4_robust`` on hard z-buffer
+targets under appearance randomisation); resumable checkpoints and metrics
+writers; the reference's default ``separable`` raster with bf16 scores;
+and ``evaluate`` on the synthetic stream with the 3-seed quality protocol
+(``tools/quality_eval.py``). Entry points run on CUDA unless the caller
+asks for the CPU.
 """
 
 __version__ = "0.1.0"

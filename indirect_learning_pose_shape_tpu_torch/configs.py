@@ -7,13 +7,14 @@ inference path), IEF with 3 iterations over (1024, 1024), σ=2 soft raster.
 `TrainConfig` keeps the reference's field names. The fields this port
 honours are `model`, `synthetic`, `batch_size`, `learning_rate`,
 `lr_schedule`, `warmup_steps`, `grad_clip_norm`, `weight_decay`,
-`num_steps`, `seed`, `loss_weights`, `steps_per_call`, `log_every` and
-`ema_decay` (train.py says how each acts). The others exist only so that a
-non-default value is refused with the ROADMAP item that brings it, never
-ignored. The reference's `augment` (disk data) is not carried.
+`num_steps`, `seed`, `loss_weights`, `steps_per_call`, `log_every`,
+`ema_decay`, `checkpoint_every`, `checkpoint_dir`, `metrics_path` and
+`tensorboard_dir` (train.py says how each acts). The others exist only so
+that a non-default value is refused with the ROADMAP item that brings it,
+never ignored. The reference's `augment` (disk data) is not carried.
 
-9 of the reference's 11 presets are here; `config4_robust` waits for item
-12 (hard targets and appearance), `config5_data_parallel` for item 16.
+10 of the reference's 11 presets are here; `config5_data_parallel` waits
+for item 16 (multi-GPU).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from indirect_learning_pose_shape_tpu_torch.models.network import ModelConfig
 from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
 
 # The ROADMAP items that bring what this port refuses.
-CHECKPOINTS = "ROADMAP.md, Queue 1 item 14 (checkpoints and metrics writers)"
 DISK_DATA = "ROADMAP.md, Queue 1 item 15 (disk data)"
 MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
 PRETRAINED = "ROADMAP.md, Queue 1 item 17 (pretrained weights and mean-parameter files)"
@@ -35,10 +35,6 @@ INT8 = "ROADMAP.md, Queue 1 item 17 (serving and tools: int8 post-training quant
 
 # Field -> (the only value this port takes, the ROADMAP item that brings others).
 _NOT_YET = {
-    "checkpoint_every": (0, CHECKPOINTS),
-    "checkpoint_dir": ("/tmp/ilps_ckpt", CHECKPOINTS),
-    "metrics_path": (None, CHECKPOINTS),
-    "tensorboard_dir": (None, CHECKPOINTS),
     "pretrained": (None, PRETRAINED),
     "mean_params": (None, PRETRAINED),
     "num_devices": (None, MULTI_GPU),
@@ -73,11 +69,11 @@ class TrainConfig:
     weight_decay: float = 0.0  # 0 = Adam; > 0 = AdamW
     ema_decay: float = 0.0  # 0 disables the parameters' moving average
     steps_per_call: int = 1  # fused steps per `train.fused_step` call
-    # Refused unless at these defaults (see _NOT_YET).
-    checkpoint_every: int = 0
+    checkpoint_every: int = 0  # save every N steps and resume from the latest; 0 disables
     checkpoint_dir: str = "/tmp/ilps_ckpt"
-    metrics_path: str | None = None
-    tensorboard_dir: str | None = None
+    metrics_path: str | None = None  # JSONL of the logged steps' terms
+    tensorboard_dir: str | None = None  # TensorBoard event files of the same
+    # Refused unless at these defaults (see _NOT_YET).
     pretrained: str | None = None
     mean_params: str | None = None
     num_devices: int | None = None
@@ -90,6 +86,8 @@ class TrainConfig:
             raise ValueError(f"steps_per_call must be >= 1, got {self.steps_per_call}")
         if not 0.0 <= self.ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
+        if self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
         for name, (default, later) in _NOT_YET.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -171,6 +169,21 @@ CONFIG4_MIXED = TrainConfig(
     ),
 )
 
+# The reference's robust recipe (CONFIG4_ROBUST): config4_mixed's
+# supervision trained on z-buffered hard targets under full appearance
+# randomisation (textured backgrounds, palette jitter, shading, occluders);
+# scored on the plain, hard and hardapp suites (tools/quality_eval.py).
+CONFIG4_ROBUST = dataclasses.replace(
+    CONFIG4_MIXED,
+    synthetic=SyntheticConfig(
+        targets="hard",
+        bg_mode="texture",
+        color_jitter=0.08,
+        shading=0.6,
+        occluders=2,
+    ),
+)
+
 PRESETS = {
     "config1_single": CONFIG1_SINGLE,
     "config2_smpl_batch": CONFIG2_SMPL_BATCH,
@@ -180,5 +193,6 @@ PRESETS = {
     "config4_large": CONFIG4_LARGE,
     "config4_r34": CONFIG4_R34,
     "config4_mixed": CONFIG4_MIXED,
+    "config4_robust": CONFIG4_ROBUST,
     "config4_parts31": CONFIG4_PARTS31,
 }

@@ -1,20 +1,23 @@
-"""On-device synthetic training data, soft targets (port of data/synthetic.py).
+"""On-device synthetic training data (port of data/synthetic.py).
 
 Ground-truth Θ = (pose, betas, camera) is sampled, posed by SMPL (the LBS
-kernel on the card), projected, and rendered by the soft raster (the raster
-forward kernel on the card); the part labels, the target silhouette and the
-input image are derived from the raw class scores, as in the reference's
-`targets='soft'` branch.
+kernel on the card) and projected. The targets come from one of two
+renderers, as in the reference: `targets='soft'` derives the part labels,
+the silhouette and the input image from the soft raster's class scores (the
+raster forward kernel on the card); `targets='hard'` renders them with the
+z-buffered triangle raster of the asset's faces (`ops/raster_hard.py`, plain
+PyTorch) and paints the image from the hard labels. Appearance
+randomisation (textured or noise backgrounds, per-sample palette jitter,
+flat shading under a random light, occluder rectangles over the image only)
+changes the image, never the targets.
 
 Sampling and rendering are split: `sample_draws` takes every random number
 from an explicit `torch.Generator`, and `render_batch` is a deterministic
 function of those draws. jax.random and torch give different numbers from
 the same seed, so the tests hand the reference's own draws to
-`render_batch` and compare the batches.
-
-Only the reference's soft-target stream is ported: `targets='hard'`, a
-background other than 'none', `color_jitter`, `shading` and `occluders` are
-refused (ROADMAP.md, Queue 1 item 12).
+`render_batch` and compare the batches. The appearance draws come after the
+others and only when their knob is on, so the stream with every knob off
+is the one earlier versions drew.
 """
 
 from __future__ import annotations
@@ -23,12 +26,16 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
-from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
+from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
 
-_LATER = "ROADMAP.md, Queue 1 item 12 (hard targets and appearance randomisation)"
+TARGETS = ("soft", "hard")
+BG_MODES = ("none", "noise", "texture")
+_LIGHT = (0.35, -0.5, 0.79)  # the mean light direction of the shading
+_TEXTURE_CELLS = 8  # the texture background's low-resolution field, per side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,22 +47,22 @@ class SyntheticConfig:
     cam_trans_std: float = 0.08
     image_noise: float = 0.05
     kp_visibility: float = 0.9  # fraction of keypoints marked visible
-    targets: str = "soft"
-    bg_mode: str = "none"
-    color_jitter: float = 0.0
-    shading: float = 0.0
-    occluders: int = 0
+    targets: str = "soft"  # 'soft' (soft-raster scores) | 'hard' (z-buffered faces)
+    bg_mode: str = "none"  # 'none' (palette colour) | 'noise' | 'texture'
+    color_jitter: float = 0.0  # per-sample, per-part palette noise std
+    shading: float = 0.0  # flat-shading strength in [0, 1]; needs targets='hard'
+    occluders: int = 0  # random rectangles painted over the image only
+    occluder_size: float = 0.25  # largest half-size, a fraction of the image
+    # Faces per tile of the hard raster (its culled mode); 0 = every face in
+    # every tile (exact). Faces past the budget are dropped and counted in the
+    # batch's `hard_overflow`.
+    hard_k_faces: int = 0
 
     def __post_init__(self):
-        for name, default in (
-            ("targets", "soft"), ("bg_mode", "none"), ("color_jitter", 0.0),
-            ("shading", 0.0), ("occluders", 0),
-        ):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"SyntheticConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {name}={default!r}); it comes with {_LATER}"
-                )
+        if self.targets not in TARGETS:
+            raise ValueError(f"targets must be one of {TARGETS}, got {self.targets!r}")
+        if self.bg_mode not in BG_MODES:
+            raise ValueError(f"bg_mode must be one of {BG_MODES}, got {self.bg_mode!r}")
 
 
 # The reference's fixed part palette, `jax.random.uniform(PRNGKey(1234),
@@ -100,8 +107,8 @@ _PALETTE = np.array([
 
 
 # Named eval distributions (the reference's `EVAL_SUITES`): 'plain' is the
-# training stream; 'hard' and 'hardapp' need item 12 and are refused by
-# `SyntheticConfig` when applied.
+# default stream, 'hard' its z-buffered targets, 'hardapp' those with every
+# appearance knob on.
 EVAL_SUITES = {
     "plain": (),
     "hard": ("targets=hard",),
@@ -117,11 +124,10 @@ EVAL_SUITES = {
 
 def apply_overrides(cfg: SyntheticConfig, specs) -> SyntheticConfig:
     """`cfg` with CLI ``FIELD=VALUE`` overrides applied (the reference's
-    `apply_overrides`): unknown fields raise ValueError, `cam_scale_range`
-    parses as ``lo,hi``, and a value this port does not take yet raises
-    NotImplementedError from `SyntheticConfig`."""
+    `apply_overrides`): unknown fields and unparsable values raise
+    ValueError, and `cam_scale_range` parses as ``lo,hi``."""
     valid = {f.name for f in dataclasses.fields(SyntheticConfig)}
-    choices = {"targets": ("soft", "hard"), "bg_mode": ("none", "noise", "texture")}
+    choices = {"targets": TARGETS, "bg_mode": BG_MODES}
     updates = {}
     for spec in specs:
         name, sep, value = spec.partition("=")
@@ -139,7 +145,7 @@ def apply_overrides(cfg: SyntheticConfig, specs) -> SyntheticConfig:
                 if value not in choices[name]:
                     raise ValueError(f"takes one of {choices[name]}")
                 updates[name] = value
-            elif name == "occluders":
+            elif name in ("occluders", "hard_k_faces"):
                 updates[name] = int(value)
             else:
                 updates[name] = float(value)
@@ -167,7 +173,17 @@ def sample_draws(
     """Every random number of one batch, from `gen`, on `gen`'s device:
     pose [B, J*3] (global orientation in the first 3), betas [B, num_betas],
     cam [B, 3] (scale, tx, ty), noise [B, S, S, 3] standard normal, and
-    vis_u [B, K] uniform, the keypoint dropout draws."""
+    vis_u [B, K] uniform, the keypoint dropout draws; then, each only when
+    its knob is on:
+
+      pal_noise   [B, C+1, 3]  color_jitter · N(0, 1), added to the palette
+      bg_low      [B, 8, 8, 3] and bg_grain [B, S, S, 3] uniform (texture)
+      bg_noise    [B, S, S, 3] uniform (noise background)
+      light       [B, 3]       the shading's light, (0.35, -0.5, 0.79) + 0.6 · N(0, 1)
+      occ_centre  [n, B, 2]    each occluder's centre (x, y), uniform on [0, S)
+      occ_half    [n, B, 2]    its half-size, uniform on [0.04 S, occluder_size · S)
+      occ_color   [n, B, 3]    its colour, uniform
+    """
     dev = gen.device
     J = consts.smpl.num_joints
     K = consts.smpl.cocoplus_regressor.shape[0]
@@ -184,13 +200,63 @@ def sample_draws(
     lo, hi = cfg.cam_scale_range
     scale = lo + (hi - lo) * uniform(batch, 1)
     trans = cfg.cam_trans_std * normal(batch, 2)
-    return {
+    draws = {
         "pose": pose,
         "betas": betas,
         "cam": torch.cat([scale, trans], dim=1),
         "noise": normal(batch, image_size, image_size, 3),
         "vis_u": uniform(batch, K),
     }
+    S = image_size
+    if cfg.color_jitter:
+        draws["pal_noise"] = cfg.color_jitter * normal(batch, consts.part_layout.num_parts + 1, 3)
+    if cfg.bg_mode == "texture":
+        draws["bg_low"] = uniform(batch, _TEXTURE_CELLS, _TEXTURE_CELLS, 3)
+        draws["bg_grain"] = uniform(batch, S, S, 3)
+    elif cfg.bg_mode == "noise":
+        draws["bg_noise"] = uniform(batch, S, S, 3)
+    if cfg.shading:
+        draws["light"] = torch.tensor(_LIGHT, device=dev) + 0.6 * normal(batch, 3)
+    if cfg.occluders:
+        occ = [
+            (S * uniform(batch, 2),
+             0.04 * S + (cfg.occluder_size - 0.04) * S * uniform(batch, 2),
+             uniform(batch, 3))
+            for _ in range(cfg.occluders)
+        ]
+        for i, key in enumerate(("occ_centre", "occ_half", "occ_color")):
+            draws[key] = torch.stack([o[i] for o in occ])
+    return draws
+
+
+def _background(draws: dict, mode: str, size: int) -> torch.Tensor | None:
+    """The background image [B, S, S, 3] in [0, 1], or None for 'none':
+    'noise' is i.i.d. per-pixel colour; 'texture' the 8x8 field upsampled
+    bilinearly (half-pixel centres, edges clamped: `jax.image.resize`'s
+    'bilinear' when enlarging) under 0.8, plus 0.2 of per-pixel grain."""
+    if mode == "none":
+        return None
+    if mode == "noise":
+        return draws["bg_noise"]
+    low = F.interpolate(
+        draws["bg_low"].permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+        align_corners=False, antialias=False,
+    ).permute(0, 2, 3, 1)
+    return torch.clamp(0.8 * low + 0.2 * draws["bg_grain"], 0.0, 1.0)
+
+
+def _paint_occluders(draws: dict, image: torch.Tensor, cfg: SyntheticConfig) -> torch.Tensor:
+    """Paint the occluder rectangles over the image (only: the targets keep
+    labelling the whole body, as a dataset's annotations do)."""
+    size = image.shape[1]
+    coords = torch.arange(size, dtype=torch.float32, device=image.device)
+    for i in range(cfg.occluders):
+        centre, half = draws["occ_centre"][i], draws["occ_half"][i]
+        in_x = torch.abs(coords[None, :] - centre[:, 0:1]) < half[:, 0:1]  # [B, S]
+        in_y = torch.abs(coords[None, :] - centre[:, 1:2]) < half[:, 1:2]
+        mask = (in_y[:, :, None] & in_x[:, None, :])[..., None]  # [B, S, S, 1]
+        image = torch.where(mask, draws["occ_color"][i][:, None, None, :], image)
+    return image
 
 
 @torch.no_grad()
@@ -211,38 +277,75 @@ def render_batch(
       gt_pose / gt_betas / gt_cam (recovery diagnostics)
       gt_joints3d [B, J, 3], gt_verts [B, V, 3], gt_rotmats [B, J, 3, 3]
                   (the direct-supervision targets, with include_3d)
+      hard_overflow []         int32, faces the hard raster's culling
+                  dropped (targets='hard' with hard_k_faces)
 
-    The target render is stored as bf16, as the reference's target path
-    (on the separable impl at matmul_precision 'default'); labels are
-    argmaxes and thresholds of those scores, and the image is the bf16
-    palette mix summed in float32.
+    Soft targets: the target render is stored as bf16, as the reference's
+    target path (on the separable impl at matmul_precision 'default');
+    labels are argmaxes and thresholds of those scores, and the image is the
+    bf16 palette mix summed in float32 over the background colour. Hard
+    targets: the hard raster's labels and silhouette, and the image is the
+    palette colour of each label (times the shade) over the background.
     """
+    if cfg.shading and cfg.targets != "hard":
+        raise ValueError(
+            "synthetic shading needs face normals, which only the hard z-buffer "
+            "renderer computes: set targets=hard with shading"
+        )
     size = model_cfg.image_size
     pose, betas, cam = draws["pose"], draws["betas"], draws["cam"]
+    B = pose.shape[0]
     smpl_out = smpl_mod.smpl_forward(consts.smpl, pose, betas, impl=model_cfg.smpl_impl)
     verts2d = camera.project_pixel(smpl_out["verts"], cam, size)
     kp2d = camera.project_pixel(smpl_out["kp3d"], cam, size)
 
-    target_raster = dataclasses.replace(model_cfg.raster, matmul_precision="default")
-    score = raster.raster_scores_cf(
-        verts2d, consts.part_layout, target_raster, impl=model_cfg.raster_impl,
-        out_dtype=torch.bfloat16,
-    )  # [B, C, S, S]
-    bg = float(model_cfg.raster.bg_gamma)
-    s_total = torch.sum(score, dim=1, dtype=torch.float32)
-    best = torch.argmax(score, dim=1).to(torch.int32)
-    mx = torch.amax(score, dim=1).float()
-    part_labels = torch.where(mx > bg, best + 1, 0).to(torch.int32)
-    silhouette = (s_total > bg).float()
+    palette = torch.as_tensor(part_palette(model_cfg.raster.num_parts + 1), device=pose.device)
+    if cfg.color_jitter:
+        palette = torch.clamp(palette + draws["pal_noise"], 0.0, 1.0)  # [B, C+1, 3]
+    else:
+        palette = palette.expand(B, *palette.shape)
+    bg_px = _background(draws, cfg.bg_mode, size)
+    extra = {}
 
-    palette = torch.as_tensor(
-        part_palette(model_cfg.raster.num_parts + 1), device=score.device
-    )
-    pal = palette[1:].to(score.dtype)  # [C, 3]
-    mix = torch.sum(
-        score[:, :, :, :, None] * pal[None, :, None, None, :], dim=1, dtype=torch.float32
-    )  # [B, S, S, 3]
-    image = (bg * palette[0] + mix) / (bg + s_total)[..., None]
+    if cfg.targets == "hard":
+        hr = raster_hard.hard_raster(
+            verts2d, smpl_out["verts"][..., 2], consts.hard, size,
+            k_faces=cfg.hard_k_faces or None, with_shade=cfg.shading > 0,
+            light=draws["light"] if cfg.shading else _LIGHT,
+        )
+        part_labels, silhouette = hr["part_labels"], hr["silhouette"]
+        if cfg.hard_k_faces:
+            extra["hard_overflow"] = hr["overflow"]
+        idx = part_labels.reshape(B, -1, 1).long().expand(-1, -1, 3)
+        rgb = torch.gather(palette, 1, idx).reshape(B, size, size, 3)
+        fg = silhouette[..., None] > 0
+        if cfg.shading:
+            lit = 1.0 - cfg.shading + cfg.shading * hr["shade"][..., None]
+            rgb = torch.where(fg, rgb * lit, rgb)
+        if bg_px is not None:
+            rgb = torch.where(fg, rgb, bg_px)
+        image = rgb
+    else:
+        target_raster = dataclasses.replace(model_cfg.raster, matmul_precision="default")
+        score = raster.raster_scores_cf(
+            verts2d, consts.part_layout, target_raster, impl=model_cfg.raster_impl,
+            out_dtype=torch.bfloat16,
+        )  # [B, C, S, S]
+        bg = float(model_cfg.raster.bg_gamma)
+        s_total = torch.sum(score, dim=1, dtype=torch.float32)
+        best = torch.argmax(score, dim=1).to(torch.int32)
+        mx = torch.amax(score, dim=1).float()
+        part_labels = torch.where(mx > bg, best + 1, 0).to(torch.int32)
+        silhouette = (s_total > bg).float()
+
+        pal = palette[:, 1:].to(score.dtype)  # [B, C, 3]
+        mix = torch.sum(
+            score[:, :, :, :, None] * pal[:, :, None, None, :], dim=1, dtype=torch.float32
+        )  # [B, S, S, 3]
+        bg_rgb = bg_px if bg_px is not None else palette[:, 0][:, None, None, :]
+        image = (bg * bg_rgb + mix) / (bg + s_total)[..., None]
+
+    image = _paint_occluders(draws, image, cfg)
     image = image + cfg.image_noise * draws["noise"]
     image = torch.clamp(image, 0.0, 1.0) * 2.0 - 1.0
 
@@ -259,9 +362,10 @@ def render_batch(
         "gt_pose": pose,
         "gt_betas": betas,
         "gt_cam": cam,
+        **extra,
     }
     if include_3d:
-        B, J = pose.shape[0], consts.smpl.num_joints
+        J = consts.smpl.num_joints
         out["gt_joints3d"] = smpl_out["joints"]
         out["gt_verts"] = smpl_out["verts"]
         # The stream samples axis-angle; rotation matrices are the target a

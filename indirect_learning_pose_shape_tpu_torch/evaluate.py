@@ -16,9 +16,12 @@ generator seeded by (seed, i), with running-statistics BatchNorm
 (`forward_train(train=False)`); it is deterministic for a fixed seed and
 batch count. The metrics accumulate on the device and reach the host once.
 
-    python -m indirect_learning_pose_shape_tpu_torch.evaluate --preset config4_mixed --batches 4
+    python -m indirect_learning_pose_shape_tpu_torch.evaluate --preset config4_robust \
+        --checkpoint D [--step N] [--ema] [--eval-suite hardapp] --batches 4
 
-scores the preset's seed-initialised model and prints one JSON line.
+scores the latest (or step N's) model of a training checkpoint, or its EMA
+(the preset's seed-initialised model without --checkpoint), and prints one
+JSON line. `tools/quality_eval.py` is the 3-seed protocol over `evaluate`.
 """
 
 from __future__ import annotations
@@ -30,12 +33,11 @@ import sys
 
 import torch
 
-from indirect_learning_pose_shape_tpu_torch import configs, train
+from indirect_learning_pose_shape_tpu_torch import configs, predict, train
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
-from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 
@@ -141,9 +143,46 @@ def evaluate(
     return dict(zip(names, means))
 
 
+def eval_config(
+    cfg: configs.TrainConfig,
+    batch_size: int | None = None,
+    image_size: int | None = None,
+    suite: str | None = None,
+    synthetic_specs=(),
+    ief_iters: int | None = None,
+    rot_format: str | None = None,
+) -> tuple[configs.TrainConfig, list[str]]:
+    """`cfg` scored as the CLIs ask: another batch or image size, the
+    stream of a named suite (`synthetic.EVAL_SUITES`) with FIELD=VALUE
+    overrides on top, the IEF iterations and rotation format the checkpoint
+    trained with. Returns the config and the stream overrides applied;
+    raises ValueError on a bad override.
+
+    A suite names the whole stream: its fields are applied to the default
+    `SyntheticConfig`, not to the preset's, so `plain` is the plain stream
+    for config4_robust too (the reference applies them to the preset's
+    stream, where config4_robust's 'plain' is its own hardapp stream)."""
+    updates, model = {}, cfg.model
+    if batch_size:
+        updates["batch_size"] = batch_size
+    if image_size:
+        model = dataclasses.replace(
+            model, image_size=image_size, raster=dataclasses.replace(model.raster, image_size=image_size)
+        )
+    if ief_iters is not None:
+        model = dataclasses.replace(model, ief=dataclasses.replace(model.ief, num_iterations=ief_iters))
+    if rot_format is not None:
+        model = dataclasses.replace(model, ief=dataclasses.replace(model.ief, rotation_format=rot_format))
+    specs = list(synthetic.EVAL_SUITES[suite]) if suite else []
+    specs += list(synthetic_specs or [])
+    if suite or specs:
+        base = synthetic.SyntheticConfig() if suite else cfg.synthetic
+        updates["synthetic"] = synthetic.apply_overrides(base, specs)
+    return dataclasses.replace(cfg, model=model, **updates), specs
+
+
 # Reference flags that need an item not ported yet.
 _REFUSED = {
-    "checkpoint": configs.CHECKPOINTS, "step": configs.CHECKPOINTS, "ema": configs.CHECKPOINTS,
     "dataset": configs.DISK_DATA, "image_dir": configs.DISK_DATA,
     "int8": configs.INT8, "qparams": configs.INT8, "int8_impl": configs.INT8,
 }
@@ -160,9 +199,9 @@ def main(argv=None) -> int:
     ap.add_argument("--synthetic", action="append", default=None, metavar="FIELD=VALUE",
                     help="override one synthetic-stream field (repeatable), on top of the suite")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--step", type=int, default=None)
-    ap.add_argument("--ema", action="store_true")
+    ap.add_argument("--checkpoint", default=None, help="a training run's checkpoint_dir")
+    ap.add_argument("--step", type=int, default=None, help="score this checkpoint step (default: the latest)")
+    ap.add_argument("--ema", action="store_true", help="score the checkpoint's EMA parameters")
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--image-dir", default=None)
     ap.add_argument("--int8", action="store_true")
@@ -172,29 +211,20 @@ def main(argv=None) -> int:
     for flag, item in _REFUSED.items():
         if getattr(args, flag) not in (None, False):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet; it comes with {item}")
-
-    cfg = configs.PRESETS[args.preset]
-    updates = {}
-    if args.batch_size:
-        updates["batch_size"] = args.batch_size
-    if args.image_size:
-        updates["model"] = dataclasses.replace(
-            cfg.model,
-            image_size=args.image_size,
-            raster=dataclasses.replace(cfg.model.raster, image_size=args.image_size),
+    if (args.step is not None or args.ema) and not args.checkpoint:
+        ap.error("--step and --ema need --checkpoint")
+    try:
+        cfg, _ = eval_config(
+            configs.PRESETS[args.preset], args.batch_size, args.image_size, args.eval_suite, args.synthetic
         )
-    specs = list(synthetic.EVAL_SUITES[args.eval_suite]) if args.eval_suite else []
-    specs += args.synthetic or []
-    if specs:
-        try:
-            updates["synthetic"] = synthetic.apply_overrides(cfg.synthetic, specs)
-        except (ValueError, NotImplementedError) as e:
-            ap.error(str(e))
-    cfg = dataclasses.replace(cfg, **updates)
+    except ValueError as e:
+        ap.error(str(e))
 
-    device = device_lib.resolve(args.device)
     disable_tf32()
-    model, consts = net.init(assets_lib.load_asset(), cfg.model, seed=cfg.seed, device=device)
+    model, consts = predict.load_model(
+        cfg.model, asset=assets_lib.load_asset(), seed=cfg.seed, device=args.device,
+        ema=args.ema, checkpoint_dir=args.checkpoint, step=args.step,
+    )
     metrics = evaluate(model, consts, cfg, num_batches=args.batches)
     print(json.dumps({k: round(v, 5) for k, v in metrics.items()}))
     return 0

@@ -19,7 +19,7 @@ from torch import nn
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
-from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
+from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
 from indirect_learning_pose_shape_tpu_torch.utils.assets import SMPLAsset
 
@@ -37,10 +37,12 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConsts:
-    """Non-trainable constants: SMPL tensors + class-sorted part layout."""
+    """Non-trainable constants: SMPL tensors, the class-sorted part layout
+    and the face topology of the hard (z-buffered) target renderer."""
 
     smpl: smpl_mod.SMPLConsts
     part_layout: raster.PartLayout
+    hard: raster_hard.HardConsts
 
 
 class Model(nn.Module):
@@ -61,6 +63,9 @@ def build_consts(
         part_layout=raster.build_part_layout(
             vlabels, cfg.raster.num_parts, positions=asset.v_template, device=device
         ),
+        # The soft layout's vertex classes, so hard and soft targets share
+        # one label space.
+        hard=raster_hard.build_hard_consts(asset.faces, vlabels, device=device),
     )
 
 

@@ -4,7 +4,8 @@
         [--preset config4_full] [--batch-size 32] [--out profile_train.json]
 
 Builds the training state of the preset (any of `configs.PRESETS`, e.g.
-config4_mixed: ResNet-34, rot6d, clipping, the 3D targets) at full width
+config4_mixed: ResNet-34, rot6d, clipping, the 3D targets; config4_robust:
+the same on hard targets with appearance randomisation) at full width
 with seed-0 weights
 (the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the
 predicted bodies stay in frame and the raster kernels see real work), runs
@@ -21,7 +22,11 @@ predicted bodies stay in frame and the raster kernels see real work), runs
   convolutions and cuBLAS GEMMs, "other" for the rest) and the eight
   largest device items as [ms, name, launches];
 - `kernel_launches_per_step` from the port's launch counters, and
-  `peak_memory_gb` (`torch.cuda.max_memory_allocated`).
+  `peak_memory_gb` (`torch.cuda.max_memory_allocated`);
+- with hard targets, `hard_raster_ms`: the device time of one call of the
+  hard raster as the batch makes it (its mode, shade and light) on one
+  batch's bodies, between CUDA events (`tools/timing.events_ms`); it is part
+  of "other" in `by_category_ms`.
 
 Needs one CUDA device; writes the JSON to `--out` and prints it.
 """
@@ -43,6 +48,26 @@ from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import (
     smi_line,
     wall_ms,
 )
+from indirect_learning_pose_shape_tpu_torch.tools.timing import events_ms
+
+
+def hard_raster_ms(cfg, consts, iters: int = 3) -> float:
+    """Device ms of one hard-raster call as `synthetic.render_batch` makes it,
+    on the bodies of the stream's batch 0."""
+    from indirect_learning_pose_shape_tpu_torch import train
+    from indirect_learning_pose_shape_tpu_torch.data import synthetic
+    from indirect_learning_pose_shape_tpu_torch.models import smpl
+    from indirect_learning_pose_shape_tpu_torch.ops import camera, raster_hard
+
+    size, scfg = cfg.model.image_size, cfg.synthetic
+    gen = torch.Generator(device="cuda").manual_seed(train.step_seed(cfg.seed, 0))
+    draws = synthetic.sample_draws(gen, cfg.batch_size, consts, scfg, size)
+    verts = smpl.smpl_forward(consts.smpl, draws["pose"], draws["betas"])["verts"]
+    verts2d = camera.project_pixel(verts, draws["cam"], size)
+    light = draws["light"] if scfg.shading else (0.35, -0.5, 0.79)
+    return events_ms(lambda: raster_hard.hard_raster(
+        verts2d, verts[..., 2], consts.hard, size, k_faces=scfg.hard_k_faces or None,
+        with_shade=scfg.shading > 0, light=light), iters)
 
 
 def main(argv=None) -> int:
@@ -106,6 +131,8 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if cfg.synthetic.targets == "hard":
+        result["hard_raster_ms"] = hard_raster_ms(cfg, consts)
     text = json.dumps(result, indent=1)
     with open(args.out, "w") as f:
         f.write(text)

@@ -1,9 +1,11 @@
 """Device time of a call on the card, warm and cold.
 
 `device_ms` replays calls captured in a CUDA graph between CUDA events, so
-the number holds no host work; `ColdTimer` times a call as the main path
-finds its inputs, evicted from the L2 by the work before it. Used by
-`chip_smoke.py` and `tools/lbs_ablation.py`.
+the number holds no host work; `events_ms` times calls queued back to back
+between CUDA events, for work a graph cannot capture; `ColdTimer` times a
+call as the main path finds its inputs, evicted from the L2 by the work
+before it. Used by `chip_smoke.py`, `tools/lbs_ablation.py` and
+`tools/profile_train.py`.
 """
 
 from __future__ import annotations
@@ -46,6 +48,27 @@ def device_ms(fn, replays: int, reps: int = 5, calls: int = 1) -> float:
         times.append(e0.elapsed_time(e1) / (replays * calls))
     del graph
     torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def events_ms(fn, iters: int, reps: int = 3) -> float:
+    """Device ms per call of `fn` between CUDA events, median over `reps`
+    runs of `iters` calls, for work that cannot be captured in a graph (an
+    autograd backward, eager code that copies from the host). The calls are
+    queued back to back, so the host's launches hide behind device work of
+    a millisecond or more."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / iters)
     return statistics.median(times)
 
 

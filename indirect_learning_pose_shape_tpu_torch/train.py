@@ -1,17 +1,28 @@
-"""Training on the synthetic soft-target stream (port of train.py's core).
+"""Training on the synthetic stream (port of train.py's synthetic path).
 
 One fused step, like the reference's `_fused_jit`: generate a batch on the
-device (SMPL with the LBS kernel, the target render with the raster forward
-kernel), then `forward_train` (bf16 ResNet with batch-statistics
-BatchNorm → IEF → SMPL → score-form render), `losses.total_loss`, backward
-(the raster backward kernel; LBS by its torch-einsum VJP) and the update.
+device (SMPL with the LBS kernel; the target render with the raster forward
+kernel, or the hard z-buffer raster with `targets='hard'`), then
+`forward_train` (bf16 ResNet with batch-statistics BatchNorm → IEF → SMPL →
+score-form render), `losses.total_loss`, backward (the raster backward
+kernel; LBS by its torch-einsum VJP) and the update.
 
-    python -m indirect_learning_pose_shape_tpu_torch.train --preset config4_mixed --steps 200
+    python -m indirect_learning_pose_shape_tpu_torch.train --preset config4_robust \
+        --checkpoint-every 1000 --checkpoint-dir D --metrics m.jsonl --ema-decay 0.999
 
-prints the loss terms every `log_every` steps as JSON lines. Each step's
-batch comes from a generator seeded by (seed, step), the counterpart of the
+prints the loss terms every `log_every` steps as JSON lines, and writes them
+to `metrics_path` (JSONL) and `tensorboard_dir` when set. Each step's batch
+comes from a generator seeded by (seed, step), the counterpart of the
 reference's `fold_in(rng, step)`, so a rerun sees the same stream (not the
-reference's numbers: jax.random and torch differ).
+reference's numbers: jax.random and torch differ) and a resumed run needs
+only the step and the seed.
+
+`num_steps` is the run's total budget. With `checkpoint_every` > 0, `fit`
+resumes from the latest checkpoint in `checkpoint_dir` (the model with its
+BN statistics, the optimizer, the schedule, the EMA, the step and the seed),
+trains the remaining steps, saves at every crossing of a `checkpoint_every`
+boundary under the global step, and saves the last step when the budget is
+not a multiple of it; it refuses a directory already at or past the budget.
 
 The update is the reference's optax chain, in this order:
 `optax.clip_by_global_norm` (`grad_clip_norm` > 0: gradients unchanged when
@@ -32,6 +43,7 @@ geometry, IEF) run in IEEE float32 as the reference's HIGHEST precision.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -47,7 +59,9 @@ from indirect_learning_pose_shape_tpu_torch import configs, losses
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
+from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
+from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 @dataclasses.dataclass
@@ -124,6 +138,43 @@ def ema_model(ts: TrainState) -> net.Model:
     return model
 
 
+def state_dict(ts: TrainState) -> dict:
+    """What a checkpoint holds: the model's state_dict (parameters and BN
+    running statistics), the optimizer's (Adam moments and counts), the schedule's (None when constant), the step, the seed and the
+    EMA (None without one). Live tensors: `Checkpointer.save` copies them."""
+    return {
+        "model": ts.model.state_dict(),
+        "optimizer": ts.optimizer.state_dict(),
+        "scheduler": None if ts.scheduler is None else ts.scheduler.state_dict(),
+        "step": ts.step,
+        "seed": ts.seed,
+        "ema": ts.ema,
+    }
+
+
+def load_state_dict(ts: TrainState, saved: dict) -> None:
+    """Restore `saved` (a `state_dict`) into `ts` in place. `ts` must be
+    built as the saving run's was (`new_state`: the model, the optimizer, the
+    LambdaLR, whose constructor takes one step of its own), so that each
+    loaded state lands on the object that wrote it."""
+    for key, have in (("scheduler", ts.scheduler), ("ema", ts.ema)):
+        if (saved[key] is None) != (have is None):
+            raise ValueError(
+                f"the checkpoint {'has no' if saved[key] is None else 'has a'} {key} and this "
+                f"configuration {'builds one' if have is not None else 'does not'} "
+                "(lr_schedule and ema_decay must match the run that saved it)"
+            )
+    ts.model.load_state_dict(saved["model"])
+    ts.optimizer.load_state_dict(saved["optimizer"])
+    if ts.scheduler is not None:
+        ts.scheduler.load_state_dict(saved["scheduler"])
+    if ts.ema is not None:
+        with torch.no_grad():
+            for k, v in ts.ema.items():
+                v.copy_(saved["ema"][k])
+    ts.step, ts.seed = int(saved["step"]), int(saved["seed"])
+
+
 def loss_and_metrics(
     model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -152,6 +203,8 @@ def loss_and_metrics(
             terms["pose_err"] = torch.mean(torch.abs(outputs["pose"] - batch["gt_pose"]))
         if "gt_betas" in batch:
             terms["beta_err"] = torch.mean(torch.abs(outputs["betas"] - batch["gt_betas"]))
+        if "hard_overflow" in batch:  # faces the hard targets' culling dropped
+            terms["hard_overflow"] = batch["hard_overflow"].float()
     return total, terms
 
 
@@ -231,6 +284,44 @@ def fused_step(
     return terms
 
 
+def _fold_num_steps(cfg: configs.TrainConfig, num_steps: Optional[int]):
+    """`cfg` with an explicit step budget folded in before the schedule is
+    built: the cosine schedule's horizon is `cfg.num_steps`."""
+    if num_steps and num_steps != cfg.num_steps:
+        cfg = dataclasses.replace(cfg, num_steps=num_steps)
+    return cfg, cfg.num_steps
+
+
+def _setup_checkpoint(cfg: configs.TrainConfig, ts: TrainState, num_steps: int):
+    """The checkpointer of `cfg.checkpoint_dir` (None without
+    `checkpoint_every`), with the latest checkpoint restored into `ts`;
+    refuses a directory whose latest step is already at or past the budget."""
+    if not cfg.checkpoint_every:
+        return None
+    ckpt = Checkpointer(cfg.checkpoint_dir)
+    latest = ckpt.latest_step()
+    if latest is not None:
+        if latest >= num_steps:
+            raise ValueError(
+                f"checkpoint_dir {cfg.checkpoint_dir!r} already holds step {latest} >= "
+                f"num_steps {num_steps}: refusing to train zero steps. Point checkpoint_dir "
+                "somewhere fresh for a new run, or raise num_steps to continue this one."
+            )
+        print(f"resuming from step {latest} in {cfg.checkpoint_dir}", file=sys.stderr)
+        # Loaded to host memory: load_state_dict puts each tensor where its
+        # parameter lives, and keeps Adam's step counts on the CPU, where the
+        # optimizer keeps them (non-capturable Adam refuses them on the card).
+        load_state_dict(ts, ckpt.restore(latest, map_location="cpu"))
+    return ckpt
+
+
+def _final_save(ckpt: Checkpointer, ts: TrainState, start: int, cfg: configs.TrainConfig) -> None:
+    """Save the last step when the periodic saves missed it (a budget that
+    is not a multiple of checkpoint_every)."""
+    if ts.step % cfg.checkpoint_every and ts.step > start:
+        ckpt.save(ts.step, state_dict(ts))
+
+
 def fit(
     cfg: configs.TrainConfig,
     num_steps: Optional[int] = None,
@@ -238,22 +329,46 @@ def fit(
     device: torch.device | str = "cuda",
     log: Optional[Callable[[dict], None]] = None,
 ) -> tuple[TrainState, dict[str, float]]:
-    """Train `num_steps` (default `cfg.num_steps`) fused steps from a fresh
-    state in calls of `cfg.steps_per_call` (the remainder in one shorter
-    call). `log`, when given, receives {"step": i, term: value, ...} after
-    each call that took a step at a multiple of `cfg.log_every`, and after
-    the last, with i the call's last step. Returns (state, last terms)."""
-    num_steps = cfg.num_steps if num_steps is None else num_steps
+    """Train to `num_steps` (default `cfg.num_steps`), the total budget, in
+    calls of `cfg.steps_per_call` (the remainder in one shorter call),
+    resuming from `cfg.checkpoint_dir` when `cfg.checkpoint_every` is set.
+
+    After each call that took a step at a multiple of `cfg.log_every`, and
+    after the last, the call's last terms go to a `MetricsWriter`
+    (`cfg.metrics_path`, `cfg.tensorboard_dir`) in one host transfer, and
+    `log`, when given, receives {"step": i, term: value, ...}, i the call's
+    last step. Returns (state, last terms)."""
+    cfg, num_steps = _fold_num_steps(cfg, num_steps)
     ts, consts = init_state(cfg, asset, device)
+    ckpt = _setup_checkpoint(cfg, ts, num_steps)
+    start, every = ts.step, cfg.checkpoint_every
+    if ckpt and cfg.steps_per_call > every:
+        print(
+            f"warning: steps_per_call={cfg.steps_per_call} > checkpoint_every={every}; "
+            f"checkpoints land once per call (every {cfg.steps_per_call} steps)",
+            file=sys.stderr,
+        )
+    writer = metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
     le = max(1, cfg.log_every)
-    terms: dict[str, torch.Tensor] = {}
-    while ts.step < num_steps:
-        first = ts.step
-        call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
-        terms = fused_step(ts, consts, call)
-        if log is not None and (any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps):
-            log({"step": ts.step - 1, **{name: float(v) for name, v in terms.items()}})
-    return ts, {name: float(v) for name, v in terms.items()}
+    values: dict[str, float] = {}
+    try:
+        while ts.step < num_steps:
+            first = ts.step
+            call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
+            terms = fused_step(ts, consts, call)
+            if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:
+                values = writer.write(ts.step - 1, terms)
+                if log is not None:
+                    log({"step": ts.step - 1, **values})
+            if ckpt and ts.step // every > first // every:
+                ckpt.save(ts.step, state_dict(ts))  # the global step: resume-safe
+        if ckpt:
+            _final_save(ckpt, ts, start, cfg)
+    finally:
+        if ckpt:
+            ckpt.close()
+        writer.close()
+    return ts, values
 
 
 def _weights(spec_list, base: tuple, error) -> tuple:
@@ -268,7 +383,7 @@ def _weights(spec_list, base: tuple, error) -> tuple:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Train on the synthetic soft-target stream.")
+    ap = argparse.ArgumentParser(description="Train on the synthetic stream.")
     ap.add_argument("--preset", default="config4_full", choices=sorted(configs.PRESETS))
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -291,6 +406,18 @@ def main(argv=None) -> int:
                     help="override one synthetic-stream field (repeatable), e.g. pose_std=0.35")
     ap.add_argument("--log-every", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    help="save every N steps to --checkpoint-dir and resume from its latest")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--metrics", default=None, help="JSONL file of the logged steps' terms")
+    ap.add_argument("--tensorboard", default=None, help="directory for TensorBoard event files")
+    ap.add_argument("--profile", default=None,
+                    help="write a torch.profiler Chrome trace of the run to DIR/trace.json")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly mode: name the op whose backward made a NaN")
+    ap.add_argument("--ief-iters", type=int, default=None, help="IEF iterations (default 3)")
+    ap.add_argument("--rot-format", default=None, choices=["axis_angle", "rot6d"],
+                    help="pose rotation format; a checkpoint restores only under the format it trained with")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
@@ -303,7 +430,9 @@ def main(argv=None) -> int:
     for flag, field in (("lr_schedule", "lr_schedule"), ("warmup_steps", "warmup_steps"),
                         ("grad_clip", "grad_clip_norm"), ("weight_decay", "weight_decay"),
                         ("ema_decay", "ema_decay"), ("steps_per_call", "steps_per_call"),
-                        ("log_every", "log_every"), ("seed", "seed")):
+                        ("log_every", "log_every"), ("seed", "seed"),
+                        ("checkpoint_every", "checkpoint_every"), ("checkpoint_dir", "checkpoint_dir"),
+                        ("metrics", "metrics_path"), ("tensorboard", "tensorboard_dir")):
         if getattr(args, flag) is not None:
             updates[field] = getattr(args, flag)
     if args.loss_weight:
@@ -313,22 +442,33 @@ def main(argv=None) -> int:
             updates["synthetic"] = synthetic.apply_overrides(cfg.synthetic, args.synthetic)
         except (ValueError, NotImplementedError) as e:
             ap.error(str(e))
+    model = cfg.model
     if args.image_size:
-        updates["model"] = dataclasses.replace(
-            cfg.model,
-            image_size=args.image_size,
-            raster=dataclasses.replace(cfg.model.raster, image_size=args.image_size),
+        model = dataclasses.replace(
+            model, image_size=args.image_size,
+            raster=dataclasses.replace(model.raster, image_size=args.image_size),
         )
+    if args.ief_iters is not None:
+        if args.ief_iters < 1:
+            ap.error("--ief-iters must be >= 1")
+        model = dataclasses.replace(model, ief=dataclasses.replace(model.ief, num_iterations=args.ief_iters))
+    if args.rot_format is not None:
+        model = dataclasses.replace(model, ief=dataclasses.replace(model.ief, rotation_format=args.rot_format))
+    updates["model"] = model
     try:
         cfg = dataclasses.replace(cfg, **updates)
     except ValueError as e:
         ap.error(str(e))
 
+    if args.debug_nans:
+        debug.enable_nan_checks()
+    trace = metrics.profile_trace(args.profile) if args.profile else contextlib.nullcontext()
     t0 = time.time()
-    _, terms = fit(
-        cfg, num_steps=args.steps, device=args.device,
-        log=lambda rec: print(json.dumps(rec), flush=True),
-    )
+    with trace:
+        _, terms = fit(
+            cfg, num_steps=args.steps, device=args.device,
+            log=lambda rec: print(json.dumps(rec), flush=True),
+        )
     print(f"done in {time.time() - t0:.1f}s; final: {terms}")
     return 0
 

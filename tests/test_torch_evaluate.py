@@ -2,7 +2,8 @@
 reference's on the same numpy inputs, `_batch_metrics` against the
 reference's on the same batch (the reference's own batch injected, and the
 port's render of the reference's draws), `evaluate`'s determinism, and the
-CLI with its refusals.
+CLI: a checkpoint, a step of it, its EMA and the hard suite, and the
+refusals.
 """
 
 import json
@@ -20,7 +21,7 @@ from indirect_learning_pose_shape_tpu.models import encoder as jenc
 from indirect_learning_pose_shape_tpu.models import ief as jief
 from indirect_learning_pose_shape_tpu.models import network as jnet
 from indirect_learning_pose_shape_tpu.ops import raster as jraster
-from indirect_learning_pose_shape_tpu_torch import configs, evaluate
+from indirect_learning_pose_shape_tpu_torch import configs, evaluate, predict, train
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief
@@ -182,11 +183,52 @@ def test_cli_prints_metrics(capsys):
     assert set(line) == {"sil_iou", "part_acc", "miou", "kp_err_px", "pve", "mpjpe", "pa_mpjpe"}
 
 
+_SMALL = ["--preset", "config4_full", "--batch-size", "1", "--image-size", "32", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    """A 2-step config4_full run (full-width ResNet-18, batch 1, 32²) with an
+    EMA, checkpointed after each step."""
+    d = str(tmp_path_factory.mktemp("run"))
+    assert train.main([*_SMALL, "--steps", "2", "--checkpoint-every", "1", "--checkpoint-dir", d,
+                       "--ema-decay", "0.5", "--lr", "1e-2", "--log-every", "1"]) == 0
+    return d
+
+
+@pytest.mark.parametrize("flags", [
+    ["--checkpoint"], ["--checkpoint", "--step", "1"], ["--checkpoint", "--ema"],
+    ["--checkpoint", "--eval-suite", "hard"],
+])
+def test_cli_scores_a_checkpoint(flags, run_dir, capsys):
+    """--checkpoint (the latest step), --step, --ema and --eval-suite hard
+    print what `evaluate` reads of `predict.load_model` of that checkpoint."""
+    argv = [x for f in flags for x in ((f, run_dir) if f == "--checkpoint" else (f,))]
+    capsys.readouterr()
+    assert evaluate.main([*_SMALL, "--batches", "1", *argv]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg, _ = evaluate.eval_config(configs.CONFIG4_FULL, 1, 32, "hard" if "hard" in flags else None)
+    step = 1 if "--step" in flags else None
+    model, consts = predict.load_model(cfg.model, device="cpu", ema="--ema" in flags,
+                                       checkpoint_dir=run_dir, step=step)
+    want = evaluate.evaluate(model, consts, cfg, num_batches=1)
+    assert got == {k: round(v, 5) for k, v in want.items()}
+
+
+def test_cli_checkpoint_models_differ(run_dir):
+    """The checkpoint's steps and its EMA are different models."""
+    cfg = evaluate.eval_config(configs.CONFIG4_FULL, 1, 32)[0].model
+    params = {
+        label: dict(predict.load_model(cfg, device="cpu", checkpoint_dir=run_dir, **kw)[0].named_parameters())
+        for label, kw in (("latest", {}), ("step 1", {"step": 1}), ("ema", {"ema": True}))
+    }
+    for a, b in (("latest", "step 1"), ("latest", "ema")):
+        assert any(not torch.equal(p, params[b][k]) for k, p in params[a].items()), (a, b)
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--checkpoint", "ckpt"], "item 14"), (["--step", "5"], "item 14"), (["--ema"], "item 14"),
     (["--dataset", "x.npz"], "item 15"), (["--image-dir", "imgs"], "item 15"),
     (["--int8"], "item 17"), (["--qparams", "q.npz"], "item 17"), (["--int8-impl", "int8c"], "item 17"),
-    (["--eval-suite", "hard"], "item 12"),
 ])
 def test_cli_refusals_name_their_item(flags, item, capsys):
     with pytest.raises(SystemExit):

@@ -130,16 +130,18 @@ def test_load_model_from_npz(tiny_asset, reference, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules, serving and a training step on the CPU, import
-    neither jax nor the JAX package."""
+    """The port's modules, serving and a training step on hard targets with
+    appearance randomisation on the CPU, import neither jax nor the JAX
+    package."""
     code = (
         "import dataclasses, sys, torch\n"
         "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train\n"
         "from indirect_learning_pose_shape_tpu_torch.data import synthetic\n"
         "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network\n"
-        "from indirect_learning_pose_shape_tpu_torch.ops import raster\n"
+        "from indirect_learning_pose_shape_tpu_torch.ops import raster, raster_hard\n"
         "from indirect_learning_pose_shape_tpu_torch.ops.kernels import lbs_cuda, raster_cuda\n"
-        "from indirect_learning_pose_shape_tpu_torch.tools import profile_serve, profile_train\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import profile_serve, profile_train, quality_eval\n"
+        "from indirect_learning_pose_shape_tpu_torch.utils import checkpoint, debug, metrics\n"
         "from indirect_learning_pose_shape_tpu_torch.utils.assets import synthetic_asset\n"
         "cfg = network.ModelConfig(image_size=64,\n"
         "    encoder=encoder.EncoderConfig(width=8), ief=ief.IEFConfig(hidden_dims=(16,)),\n"
@@ -149,7 +151,8 @@ def test_port_imports_no_jax():
         "out = serve.Predictor(cfg, model, consts)(torch.zeros(2, 64, 64, 3))\n"
         "sil = predict.render_silhouette(out, consts, cfg)['silhouette']\n"
         "assert sil.shape == (2, 64, 64)\n"
-        "tcfg = dataclasses.replace(configs.CONFIG4_FULL, model=cfg, batch_size=2)\n"
+        "tcfg = dataclasses.replace(configs.CONFIG4_FULL, model=cfg, batch_size=2,\n"
+        "    synthetic=configs.CONFIG4_ROBUST.synthetic)\n"
         "_, terms = train.fit(tcfg, num_steps=1, asset=asset, device='cpu')\n"
         "assert terms['total'] > 0\n"
         "m = evaluate.evaluate(model, consts, tcfg, num_batches=1)\n"

@@ -1,7 +1,8 @@
 """PyTorch port, synthetic soft-target batches: `render_batch` from the
 reference's own draws against `generate_batch(key)` (SMPL and raster
 through the Pallas kernels, interpret mode, at 128²), the palette table
-against `_part_palette`, the draws, and the refusals.
+against `_part_palette`, the draws, the configuration's fields and the
+overrides (hard targets and appearance: tests/test_torch_raster_hard.py).
 """
 
 import dataclasses
@@ -39,9 +40,13 @@ def test_palette_refuses_other_channel_counts():
     ("targets", "hard"), ("bg_mode", "texture"), ("color_jitter", 0.08),
     ("shading", 0.6), ("occluders", 2),
 ])
-def test_unported_appearance_is_refused(field, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        synthetic.SyntheticConfig(**{field: value})
+def test_appearance_fields_are_taken(field, value):
+    """The hard-target and appearance fields are taken, from the constructor
+    and from an override, as the reference's are."""
+    got = synthetic.apply_overrides(synthetic.SyntheticConfig(), [f"{field}={value}"])
+    want = jsyn.apply_overrides(jsyn.SyntheticConfig(), [f"{field}={value}"])
+    assert getattr(got, field) == value == getattr(want, field)
+    assert synthetic.SyntheticConfig(**{field: value}) == got
 
 
 @pytest.fixture(scope="module")
@@ -116,6 +121,7 @@ def test_include_3d_matches_jax(batches):
 
 @pytest.mark.parametrize("specs", [
     ["pose_std=0.35"], ["cam_scale_range=0.5,1.3", "kp_visibility=0.8"], ["image_noise=0"],
+    ["hard_k_faces=512", "occluder_size=0.3", "bg_mode=noise"],
 ])
 def test_apply_overrides_matches_jax(specs):
     got = synthetic.apply_overrides(synthetic.SyntheticConfig(), specs)
@@ -129,9 +135,11 @@ def test_eval_suites_and_override_refusals():
     base = synthetic.SyntheticConfig()
     assert synthetic.apply_overrides(base, synthetic.EVAL_SUITES["plain"]) == base
     for name in ("hard", "hardapp"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            synthetic.apply_overrides(base, synthetic.EVAL_SUITES[name])
-    for bad in ("nope=1", "pose_std", "cam_scale_range=1", "targets=soft2", "pose_std=x"):
+        got = synthetic.apply_overrides(base, synthetic.EVAL_SUITES[name])
+        want = jsyn.apply_overrides(jsyn.SyntheticConfig(), jsyn.EVAL_SUITES[name])
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    for bad in ("nope=1", "pose_std", "cam_scale_range=1", "targets=soft2", "pose_std=x",
+                "bg_mode=plaid", "hard_k_faces=many"):
         with pytest.raises(ValueError, match="synthetic override"):
             synthetic.apply_overrides(base, [bad])
 

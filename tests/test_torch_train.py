@@ -138,12 +138,20 @@ def test_train_loss_over_steps_matches_jax(runs):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("checkpoint_every", 100), ("pretrained", "enc18.npz"), ("mean_params", "mean.npz"),
+    ("pretrained", "enc18.npz"), ("mean_params", "mean.npz"),
     ("render_devices", 2), ("num_devices", 4),
 ])
 def test_unported_train_fields_are_refused(field, value):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item"):
         dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+
+
+def test_checkpoint_fields_are_taken():
+    """The checkpoint and metrics fields are the reference's and are taken."""
+    kw = dict(checkpoint_every=100, checkpoint_dir="ckpt", metrics_path="m.jsonl", tensorboard_dir="tb")
+    cfg = dataclasses.replace(configs.CONFIG4_FULL, **kw)
+    ref = dataclasses.replace(jconfigs.CONFIG4_FULL, **kw)
+    assert _fields(cfg, kw) == _fields(ref, kw) == kw
 
 
 @pytest.mark.parametrize("field, value", [
@@ -154,7 +162,7 @@ def test_bad_optimizer_fields_are_refused(field, value):
         dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
 
 
-_UNPORTED_PRESETS = {"config4_robust", "config5_data_parallel"}  # items 12 and 16
+_UNPORTED_PRESETS = {"config5_data_parallel"}  # item 16
 
 
 def _fields(obj, names):
@@ -329,8 +337,10 @@ def test_direct_3d_weights_train(tiny_asset):
     assert {"j3d", "rotmat", "betas_l2"} <= set(terms) and np.isfinite(terms["total"])
 
 
-def test_ema_model_carries_ema_and_live_bn(tiny_asset):
-    cfg = _tiny_cfg(num_steps=2, ema_decay=0.5)
+def test_ema_model_carries_ema_and_live_bn(tiny_asset, tmp_path):
+    """`ema_model` of a live run and `load_model(ema=True)` of its checkpoint
+    serve the EMA parameters with the live BN statistics."""
+    cfg = _tiny_cfg(num_steps=2, ema_decay=0.5, checkpoint_every=2, checkpoint_dir=str(tmp_path))
     ts, _ = train.fit(cfg, asset=tiny_asset, device="cpu")
     m = train.ema_model(ts)
     for k, p in m.named_parameters():
@@ -341,8 +351,10 @@ def test_ema_model_carries_ema_and_live_bn(tiny_asset):
     assert any(not torch.equal(p, q) for p, q in zip(m.parameters(), ts.model.parameters()))
     with pytest.raises(ValueError, match="ema_decay"):
         train.ema_model(train.new_state(ts.model, dataclasses.replace(cfg, ema_decay=0.0)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        predict.load_model(cfg.model, asset=tiny_asset, device="cpu", ema=True)
+    loaded, _ = predict.load_model(cfg.model, asset=tiny_asset, device="cpu", ema=True,
+                                   checkpoint_dir=str(tmp_path))
+    for (k, p), q in zip(m.state_dict().items(), loaded.state_dict().values()):
+        assert torch.equal(p, q), k
 
 
 def test_batches_are_seeded_by_seed_and_step(tiny_asset):
@@ -372,7 +384,7 @@ def test_cli_optimizer_flags(capsys):
     assert [r["step"] for r in lines] == [1]
     assert {"j3d", "v3d", "rotmat", "betas_l2"} <= set(lines[0]) and np.isfinite(lines[0]["total"])
     for bad in (["--loss-weight", "nope=1"], ["--steps-per-call", "0"], ["--ema-decay", "1.5"],
-                ["--synthetic", "targets=hard"], ["--synthetic", "nope=1"]):
+                ["--synthetic", "targets=medium"], ["--synthetic", "nope=1"]):
         with pytest.raises(SystemExit):
             train.main(["--steps", "1", "--device", "cpu", *bad])
 
