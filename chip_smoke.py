@@ -75,11 +75,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the JSONL and TensorBoard files read back; `tools/quality_eval.py` on the
    checkpoint and its EMA on the plain, hard and hardapp suites (3 seeds x 1
    batch), and the kernels against the plain versions on hardapp.
+9. Disk data at full width (config4_full's model, b32, 256² crops from a
+   dataset at 320²): the native host preprocessor built with g++ and
+   loaded (`USE_NATIVE`), bitwise against its numpy versions on 32 ragged
+   images; a 128-example dataset written by `make_synthetic_dataset` (its
+   seconds, size and launches: one LBS and one raster forward a chunk of
+   64); one raw batch preprocessed on the card against the CPU (labels
+   equal, images within PREPROCESS_TOL; augmentation off and with the same
+   draws) and prefetched batches bitwise equal to plain copies;
+   `fit_dataset` with augmentation for 8 steps across an epoch boundary
+   (1 LBS, 1 raster forward, 1 raster backward launch a step; host ms/step,
+   img/s, the prefetcher's H2D time and waits, a profiled window of disk
+   steps); `fit_dataset` to step 4 with checkpoints, resumed to 8, against
+   a straight run (raw batches and draws bitwise, loss terms within
+   RESUME_TOL), over the file and over 4 shards; `evaluate_dataset` over 4
+   batches (2 LBS and 1 raster forward launch a batch) and the kernels
+   against the plain versions on its first batch; the image-directory path
+   (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
+   line saying which held.
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
 training main path, on the config4_mixed steps and in its evaluation, on
-the config4_robust steps (`launches_robust`), its
+the config4_robust steps (`launches_robust`), on the disk steps
+(`launches_disk`) and in the dataset writer (`launches_dataset`), its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -106,7 +125,8 @@ import numpy as np
 import torch
 
 from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train
-from indirect_learning_pose_shape_tpu_torch.data import synthetic
+from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
+from indirect_learning_pose_shape_tpu_torch.data import native_preprocess, synthetic
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
@@ -190,6 +210,24 @@ HARD_CPU_IMAGES = 2
 HARD_CPU_CHUNK = 8
 QUALITY_SEEDS = (123, 231, 312)
 QUALITY_SUITES = ("plain", "hard", "hardapp")
+# The disk phase: a dataset of DISK_EXAMPLES at DISK_SOURCE² written by the
+# port (chunks of 64: one LBS and one raster forward launch each), trained on
+# with augmentation for DISK_STEPS steps at config4_full's b32 (4 steps an
+# epoch, so the run crosses an epoch boundary), resumed at DISK_STEPS / 2,
+# over the file and over DISK_SHARDS shards; evaluated over DISK_EVAL
+# batches.
+DISK_EXAMPLES = 128
+DISK_SOURCE = 320
+DISK_STEPS = 8
+DISK_SHARDS = 4
+DISK_PROFILED = 4  # disk steps in the profiled window
+DISK_EVAL = 4
+NATIVE_IMAGES = 32  # ragged images of the host-path check
+PER_STEP_DISK = {lbs_cuda.KERNEL: 1, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1}  # no target render
+PER_EVAL_BATCH_DISK = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1}  # forward, ground truth SMPL
+# The card's preprocess against the CPU's on the same raw batch (float32 of
+# the same operations: an H100 is expected to read 0).
+PREPROCESS_TOL = 1e-5
 
 # The card's limits for bounds (H100 SXM, at its 700 W limit): HBM 3.35 TB/s
 # and 67 TFLOP/s float32 outside the tensor cores (NVIDIA's data sheet);
@@ -1279,6 +1317,293 @@ def robust_phase(asset, smi) -> dict:
             "checkpoint_s": {"save": save_s, "snapshot": snapshot_s, "restore": restore_s, "mb": mb}}
 
 
+@contextlib.contextmanager
+def measuring_prefetch(store: list):
+    """Inside the block each `dataset.prefetch_to_device` measures into a
+    `PrefetchStats` appended to `store`."""
+    plain = dataset_lib.prefetch_to_device
+
+    def prefetch(*args, **kwargs):
+        store.append(dataset_lib.PrefetchStats())
+        return plain(*args, stats=store[-1], **kwargs)
+
+    dataset_lib.prefetch_to_device = prefetch
+    try:
+        yield
+    finally:
+        dataset_lib.prefetch_to_device = plain
+
+
+@contextlib.contextmanager
+def recording_disk_steps(store: dict):
+    """Inside the block `train.data_train_step` records, under its step, the
+    raw batch it was given and the augmentation draws it made, both copied
+    to host memory, into store["raw"] and store["draws"]."""
+    plain_step, plain_draws = train.data_train_step, train.augment_draws
+
+    def draws(seed, step, *args):
+        d = plain_draws(seed, step, *args)
+        store.setdefault("draws", {})[step] = {k: v.cpu() for k, v in d.items()}
+        return d
+
+    def step(ts, raw, *args):
+        store.setdefault("raw", {})[ts.step] = {k: v.cpu() for k, v in raw.items()}
+        return plain_step(ts, raw, *args)
+
+    train.data_train_step, train.augment_draws = step, draws
+    try:
+        yield
+    finally:
+        train.data_train_step, train.augment_draws = plain_step, plain_draws
+
+
+def native_check(rng) -> dict:
+    """The native host preprocessor built with g++ and loaded, bitwise
+    against its numpy versions on NATIVE_IMAGES ragged images."""
+    t0 = time.perf_counter()
+    lib = native_preprocess.build()
+    native_preprocess._load()
+    build_s = time.perf_counter() - t0
+    check(native_preprocess.USE_NATIVE, "the native preprocessor was not built and loaded on the card host")
+    imgs = [rng.randint(0, 256, (200 + 17 * i, 180 + 13 * (i % 7), 3)).astype(np.uint8) for i in range(NATIVE_IMAGES)]
+    masks = [np.zeros(im.shape[:2], np.uint8) for im in imgs]
+    for i, m in enumerate(masks):
+        m[20 + i : 150 + i, 30 : 120 + i] = 1 + i % 24
+    masks[1][:] = 0  # an empty mask: the full frame
+    boxes = np.stack([native_preprocess.bbox_from_mask(m) for m in masks])
+    want_boxes = np.stack([native_preprocess._np_bbox_from_mask(m, 1.15) for m in masks])
+    check(np.array_equal(boxes, want_boxes), "native bbox_from_mask differs from the numpy version")
+    boxes[2], boxes[3] = (10.0, 5.0, 300.0), (250.0, 200.0, 120.0)  # past the border
+    t0 = time.perf_counter()
+    out = native_preprocess.crop_resize_normalize(imgs, boxes, 256)
+    crop_ms = (time.perf_counter() - t0) * 1e3
+    want = np.stack([native_preprocess._np_crop_resize(im, b, 256) for im, b in zip(imgs, boxes)])
+    check(np.array_equal(out, want * (np.float32(1.0) / np.float32(127.5)) - np.float32(1.0)),
+          "native crop_resize_normalize differs from the numpy version")
+    mask_out = native_preprocess.crop_resize_mask(masks, boxes, 256)
+    want_masks = np.stack([native_preprocess._np_crop_resize(m, b, 256, nearest=True) for m, b in zip(masks, boxes)])
+    check(np.array_equal(mask_out, want_masks), "native crop_resize_mask differs from the numpy version")
+    print(
+        f"[disk] native preprocessor {lib.name}: built and loaded in {build_s:.2f} s (USE_NATIVE "
+        f"{native_preprocess.USE_NATIVE}); bbox_from_mask, crop_resize_normalize and crop_resize_mask bitwise "
+        f"equal to the numpy versions on {NATIVE_IMAGES} ragged images; {NATIVE_IMAGES} crops to 256^2 in "
+        f"{crop_ms:.1f} ms on {os.cpu_count()} threads"
+    )
+    return {"build_s": build_s, "crop_ms": crop_ms}
+
+
+def disk_phase(asset, smi) -> dict:
+    """config4_full at full width (b32, 256² crops) on a disk dataset at
+    320² written by the port: the native host preprocessor; the writer's
+    time and launches; one raw batch preprocessed on the card against the
+    CPU (augmentation off and on, the same draws) and prefetched batches
+    bitwise equal to plain copies; `fit_dataset` with augmentation for
+    DISK_STEPS steps (one LBS, one raster forward and one raster backward
+    launch each), a profiled window of disk steps, the prefetcher's
+    copies and waits and the preprocess's device time; resumed at half way
+    against the straight run, over the file and over shards;
+    `evaluate_dataset`, and the kernels against the plain versions on its
+    first batch; the image-directory path where PIL imports."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(8)
+    native = native_check(rng)
+    cfg = dataclasses.replace(
+        configs.CONFIG4_FULL, log_every=1,
+        augment=dataclasses.replace(configs.CONFIG4_FULL.augment, enabled=True),
+    )
+    B, size, half = cfg.batch_size, cfg.model.image_size, DISK_STEPS // 2
+    cuda = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="ilps_disk_") as work:
+        # --- The writer: the port's generator at 320², kernels on the card. --
+        path = os.path.join(work, "d.npz")
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        arrays = dataset_lib.make_synthetic_dataset(path, DISK_EXAMPLES, source_size=DISK_SOURCE, asset=asset)
+        write_s = time.perf_counter() - t0
+        dataset_launches = _build.counts()
+        chunks = -(-DISK_EXAMPLES // 64)
+        for name in (lbs_cuda.KERNEL, raster_cuda.KERNEL):
+            check(dataset_launches.get(name, 0) == chunks,
+                  f"make_synthetic_dataset: kernel {name} launched {dataset_launches.get(name, 0)} times in {chunks} chunks")
+        check(arrays["images"].shape == (DISK_EXAMPLES, DISK_SOURCE, DISK_SOURCE, 3) and arrays["images"].dtype == np.uint8
+              and "gt_pose" in arrays and "gt_betas" in arrays, f"dataset arrays {sorted(arrays)}")
+        fg = float((arrays["masks"] > 0).mean())
+        check(fg > 0.01, f"the dataset's masks are {fg:.4f} foreground")
+        mb = os.path.getsize(path) / 1e6
+        print(
+            f"[disk] make_synthetic_dataset: {DISK_EXAMPLES} examples at {DISK_SOURCE}^2 in {write_s:.2f} s "
+            f"({DISK_EXAMPLES / write_s:.1f} examples/s, np.savez_compressed included), {mb:.1f} MB on disk, "
+            f"foreground {fg:.3f}; launches {dataset_launches} ({chunks} chunks) [{smi}]"
+        )
+        del arrays
+
+        # --- One raw batch: the card against the CPU; prefetch vs copies. ---
+        ds = dataset_lib.NpzDataset(path, B, seed=cfg.seed)
+        keys = ("images", "masks", "kp2d", "kp_vis")
+        raw_np = {k: v for k, v in next(ds.batches()).items() if k in keys}
+        raw_cpu = {k: torch.from_numpy(v) for k, v in raw_np.items()}
+        raw_dev = {k: v.to(cuda) for k, v in raw_cpu.items()}
+        draws = train.augment_draws(cfg.seed, 0, B, cfg, torch.device("cpu"))
+        check(0 < int(draws["flip"].sum()) < B, "the injected draws do not mix flipped and unflipped items")
+        errs = {}
+        for label, d in (("plain", None), ("augmented", draws)):
+            got = train.preprocess_raw_batch(raw_dev, cfg, None if d is None else {k: v.to(cuda) for k, v in d.items()})
+            want = train.preprocess_raw_batch(raw_cpu, cfg, d)
+            for k in ("part_labels", "silhouette", "kp_vis"):
+                check(torch.equal(got[k].cpu(), want[k]), f"preprocess ({label}) on the card: {k} differs from the CPU")
+            errs[label] = {k: max_err(got[k].cpu(), want[k]) for k in ("image", "kp2d")}
+            for k, e in errs[label].items():
+                check(e <= PREPROCESS_TOL, f"preprocess ({label}) on the card: {k} max abs err {e} > {PREPROCESS_TOL}")
+        draws_dev = {k: v.to(cuda) for k, v in draws.items()}
+        pre_ms = events_ms(lambda: train.preprocess_raw_batch(raw_dev, cfg, draws_dev), 10)
+        staged = [b for _, b in zip(range(6), ds.batches())]
+        prefetched = dataset_lib.prefetch_to_device(iter(staged), size=2, device=cuda)
+        for i, (got, np_batch) in enumerate(zip(prefetched, staged)):
+            for k, v in np_batch.items():
+                check(torch.equal(got[k], torch.from_numpy(v).to(cuda)), f"prefetched batch {i} {k} differs from a plain copy")
+        print(
+            f"[disk] one raw batch of {B} at {DISK_SOURCE}^2 -> {size}^2 crops: preprocess on the card vs the CPU, "
+            f"labels, silhouettes and visibility equal, max abs err " + "; ".join(
+                f"{label} {', '.join(f'{k} {e:.2e}' for k, e in es.items())}" for label, es in errs.items())
+            + f" (tolerance {PREPROCESS_TOL:g}); augmented preprocess {pre_ms:.3f} device ms; 6 prefetched "
+            f"batches bitwise equal to plain .to('cuda') copies"
+        )
+
+        # --- fit_dataset: the run timed and counted. -------------------------
+        measured, stamps = [], []
+        _build.reset_counts()
+        with scaled_init(), measuring_prefetch(measured):
+            ts_s, terms = train.fit_dataset(cfg, ds, num_steps=DISK_STEPS, asset=asset, device="cuda",
+                                            log=lambda rec: stamps.append(time.perf_counter()))
+        launches = _build.counts()
+        for name, per in PER_STEP_DISK.items():
+            check(launches.get(name, 0) == per * DISK_STEPS,
+                  f"fit_dataset: kernel {name} launched {launches.get(name, 0)} times in {DISK_STEPS} steps, not {per} per step")
+        check(np.isfinite(terms["total"]), f"fit_dataset: non-finite loss {terms}")
+        # Each logged step ends in the writer's host transfer, a synchronize.
+        times = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        med, p90 = statistics.median(times), float(np.percentile(times, 90))
+        (stats,) = measured
+        torch.cuda.synchronize()
+        h2d = [a.elapsed_time(b) for a, b in stats.h2d_events]
+        wait_ms = [w * 1e3 for w in stats.wait_s[1:]]  # the first wait includes the first load
+
+        # --- A profiled window of disk steps (data_train_step, prefetched). -
+        with scaled_init():
+            ts_p, consts = train.init_state(cfg, asset=asset, device="cuda")
+        pulls = train.dataset_pulls(cfg, ds.keys)
+        batches = dataset_lib.prefetch_to_device(
+            ({k: b[src] for k, src in pulls.items()} for b in ds.batches()), device=cuda)
+        for _ in range(2):
+            train.data_train_step(ts_p, next(batches), consts, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DISK_PROFILED):
+                train.data_train_step(ts_p, next(batches), consts, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / DISK_PROFILED
+        batches.close()
+        dev = device_summary(prof, DISK_PROFILED)
+        del ts_p
+        print(
+            f"[disk] fit_dataset config4_full B={B} {size}^2 crops from {DISK_SOURCE}^2, --augment, {DISK_STEPS} steps "
+            f"({ds.steps_per_epoch()} an epoch): launches {launches}; host median {med:.3f} ms/step, p90 {p90:.3f} ms "
+            f"({B / med * 1e3:.1f} img/s) over steps 1-{DISK_STEPS - 1}; profiled window of {DISK_PROFILED} steps: "
+            f"device {dev['device_ms']:.3f} ms/step, wall {wall:.3f} ms, busy share {dev['device_ms'] / wall:.3f}, "
+            f"{dev['kernels']:.0f} kernels, by category {json.dumps({k: round(v, 3) for k, v in dev['by_category_ms'].items()})}; "
+            f"H2D {statistics.median(h2d):.3f} ms/batch (median of {len(h2d)}), prefetch wait median "
+            f"{statistics.median(wait_ms):.3f} ms, max {max(wait_ms):.3f} ms a step; preprocess {pre_ms:.3f} device ms "
+            f"[{smi}]"
+        )
+
+        # --- Resume at half way against the straight run: file and shards. --
+        shard_dir = os.path.join(work, "shards")
+        dataset_lib.shard_npz(path, shard_dir, -(-DISK_EXAMPLES // DISK_SHARDS))
+        for source, data in (("file", ds), ("shards", dataset_lib.open_dataset(shard_dir, B, seed=cfg.seed))):
+            straight = {}
+            with scaled_init(), recording_disk_steps(straight):
+                _, terms_s = train.fit_dataset(cfg, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
+            split = dataclasses.replace(cfg, checkpoint_every=half, checkpoint_dir=os.path.join(work, f"ck_{source}"))
+            resumed = {}
+            with scaled_init():
+                train.fit_dataset(split, data, num_steps=half, asset=asset, device="cuda")
+                with recording_disk_steps(resumed):
+                    ts_r, terms_r = train.fit_dataset(split, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
+            check(ts_r.step == DISK_STEPS and sorted(resumed["raw"]) == list(range(half, DISK_STEPS)),
+                  f"{source}: the resumed run took steps {sorted(resumed['raw'])}")
+            for step in range(half, DISK_STEPS):
+                for what in ("raw", "draws"):
+                    a, b = resumed[what][step], straight[what][step]
+                    check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+                          f"{source}: the resumed run's {what} of step {step} differ from the straight run's")
+            rel = {t: abs(terms_r[t] - v) / max(abs(v), 1e-6) for t, v in terms_s.items()}
+            worst = max(rel, key=rel.get)
+            check(set(terms_r) == set(terms_s) and rel[worst] <= RESUME_TOL,
+                  f"{source}: resumed vs straight at step {DISK_STEPS}: {worst} rel err {rel[worst]} > {RESUME_TOL}")
+            print(
+                f"[disk] {source} ({len(getattr(data, 'paths', [path]))} file(s)): fit_dataset to step {half} with "
+                f"checkpoints, resumed to {DISK_STEPS}: raw batches and augmentation draws of steps {half}-{DISK_STEPS - 1} "
+                f"bitwise the straight run's; loss terms at step {DISK_STEPS}: worst {worst} rel err {rel[worst]:.3e} "
+                f"(tolerance {RESUME_TOL:g})"
+            )
+            del ts_r
+
+        # --- evaluate_dataset, and the kernels against the plain versions. --
+        _build.reset_counts()
+        consts_e = net.build_consts(asset, cfg.model, cuda)
+        m = evaluate.evaluate_dataset(ts_s.model, consts_e, cfg, ds, max_batches=DISK_EVAL)
+        eval_launches = _build.counts()
+        for name, per in PER_EVAL_BATCH_DISK.items():
+            check(eval_launches.get(name, 0) == per * DISK_EVAL,
+                  f"evaluate_dataset: kernel {name} launched {eval_launches.get(name, 0)} times in {DISK_EVAL} batches")
+        check(not eval_launches.get(raster_cuda.KERNEL_BWD), "evaluate_dataset launched the raster backward kernel")
+        check(all(np.isfinite(v) for v in m.values()) and {"pve", "mpjpe", "pa_mpjpe"} <= set(m),
+              f"evaluate_dataset: {m}")
+        plain = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, smpl_impl="torch", raster_impl="torch"))
+        k1 = evaluate.evaluate_dataset(ts_s.model, consts_e, cfg, ds, max_batches=1)
+        p1 = evaluate.evaluate_dataset(ts_s.model, consts_e, plain, ds, max_batches=1)
+        diff = {k: abs(k1[k] - p1[k]) / (1.0 if k in EVAL_ABS else max(abs(p1[k]), 1e-12)) for k in k1}
+        for k, d in diff.items():
+            check(d <= (EVAL_ABS_TOL if k in EVAL_ABS else EVAL_REL_TOL),
+                  f"evaluate_dataset, kernels vs plain versions: {k} differs by {d}")
+        print(
+            f"[disk] evaluate_dataset, {DISK_EVAL} x {B} images (epoch 0, running-statistics BN): "
+            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items())) + f"; launches {eval_launches}; first batch, "
+            "kernels vs plain versions: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diff.items()))
+            + f" (absolute for {', '.join(EVAL_ABS)}, relative otherwise)"
+        )
+
+        # --- The image-directory path, where PIL imports. -------------------
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            print("[disk] image directories: PIL does not import here, so the image-directory path was not driven")
+        else:
+            from indirect_learning_pose_shape_tpu_torch.data import image_dir
+
+            root = os.path.join(work, "imgs")
+            with np.load(path) as z:
+                image_dir.export_image_dir({k: z[k][: 2 * B] for k in keys}, root)
+            idd = image_dir.ImageDirDataset(root, B, size, seed=cfg.seed, augment=cfg.augment)
+            with scaled_init():
+                ts_i, terms_i = train.fit_preprocessed(cfg, idd, num_steps=2, asset=asset, device="cuda")
+            mi = evaluate.evaluate_preprocessed(ts_i.model, consts_e, cfg, image_dir.ImageDirDataset(root, B, size))
+            check(np.isfinite(terms_i["total"]) and all(np.isfinite(v) for v in mi.values()),
+                  f"image directory: {terms_i}, {mi}")
+            print(
+                f"[disk] image directories: PIL imports; {2 * B} examples exported, fit_preprocessed 2 augmented steps "
+                f"(loss {terms_i['total']:.4f}), evaluate_preprocessed: "
+                + ", ".join(f"{k} {v:.5f}" for k, v in sorted(mi.items()))
+            )
+    torch.cuda.empty_cache()
+    print(f"[disk] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "dataset_launches": dataset_launches, "ms_per_step": med, "p90": p90,
+            "device_ms": dev["device_ms"], "busy": dev["device_ms"] / wall, "native": native}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1317,6 +1642,7 @@ def main() -> int:
     tr = training_phase(asset, smi)
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
+    disk = disk_phase(asset, smi)
 
     def entry(name, source, replaces, **numbers):
         return dict(
@@ -1328,6 +1654,8 @@ def main() -> int:
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),
             launches_robust=robust["launches"].get(name, 0),
+            launches_disk=disk["launches"].get(name, 0),
+            launches_dataset=disk["dataset_launches"].get(name, 0),
             **{"library_ms": None, **numbers},
         )
 

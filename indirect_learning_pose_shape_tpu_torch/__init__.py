@@ -6,7 +6,8 @@ package mirrors its module layout (``models/``, ``ops/``, ``ops/kernels/``,
 ``evaluate.py``, ``losses.py``, ``configs.py``) and is checked
 against it module by module. It imports ``torch`` and never ``jax``, and
 nothing of the reference package: the numpy pieces it needs (the SMPL asset,
-the part layout) are copies, tested equal to the reference's.
+the part layout, the flip tables, the dataset streams, the host
+preprocessor's binding) are copies, tested equal to the reference's.
 
 Every Pallas kernel on a ported path is a hand-written CUDA kernel for
 Hopper (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at first use by
@@ -20,12 +21,16 @@ kernel → weak-perspective projection) plus ``predict.render_silhouette``
 training step, ``train.fused_step`` (on-device synthetic batch →
 ``forward_train`` → ``losses.total_loss`` → backward through the raster
 backward kernel → the reference's optimizer menu: clipping, Adam/AdamW,
-cosine warm-up, EMA), with every preset that needs no disk data or more
-than one GPU (``config4_mixed``, and ``config4_robust`` on hard z-buffer
-targets under appearance randomisation); resumable checkpoints and metrics
-writers; the reference's default ``separable`` raster with bf16 scores;
-and ``evaluate`` on the synthetic stream with the 3-seed quality protocol
-(``tools/quality_eval.py``). Entry points run on CUDA unless the caller
+cosine warm-up, EMA), with every preset that needs no more than one GPU
+(``config4_mixed``, and ``config4_robust`` on hard z-buffer targets under
+appearance randomisation); resumable checkpoints and metrics writers; the
+reference's default ``separable`` raster with bf16 scores; ``evaluate`` on
+the synthetic stream with the 3-seed quality protocol
+(``tools/quality_eval.py``); and disk data: npz and sharded datasets,
+on-device crop/resize with mirror and crop-jitter augmentation, prefetch to
+the card (``train.fit_dataset``, ``evaluate.evaluate_dataset``) and image
+directories through the native host preprocessor
+(``train.fit_preprocessed``). Entry points run on CUDA unless the caller
 asks for the CPU.
 """
 

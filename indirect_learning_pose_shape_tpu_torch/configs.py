@@ -8,10 +8,11 @@ inference path), IEF with 3 iterations over (1024, 1024), σ=2 soft raster.
 honours are `model`, `synthetic`, `batch_size`, `learning_rate`,
 `lr_schedule`, `warmup_steps`, `grad_clip_norm`, `weight_decay`,
 `num_steps`, `seed`, `loss_weights`, `steps_per_call`, `log_every`,
-`ema_decay`, `checkpoint_every`, `checkpoint_dir`, `metrics_path` and
-`tensorboard_dir` (train.py says how each acts). The others exist only so
+`ema_decay`, `checkpoint_every`, `checkpoint_dir`, `metrics_path`,
+`tensorboard_dir` and `augment` (mirror and crop jitter on disk data,
+data/augment.py; train.py says how each acts). The others exist only so
 that a non-default value is refused with the ROADMAP item that brings it,
-never ignored. The reference's `augment` (disk data) is not carried.
+never ignored.
 
 10 of the reference's 11 presets are here; `config5_data_parallel` waits
 for item 16 (multi-GPU).
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from indirect_learning_pose_shape_tpu_torch.data.augment import AugmentConfig
 from indirect_learning_pose_shape_tpu_torch.data.synthetic import SyntheticConfig
 from indirect_learning_pose_shape_tpu_torch.models.encoder import EncoderConfig
 from indirect_learning_pose_shape_tpu_torch.models.ief import IEFConfig
@@ -28,7 +30,6 @@ from indirect_learning_pose_shape_tpu_torch.models.network import ModelConfig
 from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
 
 # The ROADMAP items that bring what this port refuses.
-DISK_DATA = "ROADMAP.md, Queue 1 item 15 (disk data)"
 MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
 PRETRAINED = "ROADMAP.md, Queue 1 item 17 (pretrained weights and mean-parameter files)"
 INT8 = "ROADMAP.md, Queue 1 item 17 (serving and tools: int8 post-training quantization)"
@@ -73,6 +74,7 @@ class TrainConfig:
     checkpoint_dir: str = "/tmp/ilps_ckpt"
     metrics_path: str | None = None  # JSONL of the logged steps' terms
     tensorboard_dir: str | None = None  # TensorBoard event files of the same
+    augment: AugmentConfig = AugmentConfig()  # disk-data mirror + crop jitter
     # Refused unless at these defaults (see _NOT_YET).
     pretrained: str | None = None
     mean_params: str | None = None
@@ -140,9 +142,13 @@ CONFIG4_LARGE = TrainConfig(
     model=dataclasses.replace(_model(256, depth=50), ief=IEFConfig(rotation_format="rot6d")),
     batch_size=32,
 )
-# 31 foreground part classes (reference CONFIG4_PARTS31, without its
-# disk-data mirror convention).
-CONFIG4_PARTS31 = TrainConfig(model=_model(256, num_parts=31), batch_size=32)
+# 31 foreground part classes (reference CONFIG4_PARTS31), whose mirror flips
+# the SMPL ids of the 31-part layout.
+CONFIG4_PARTS31 = TrainConfig(
+    model=_model(256, num_parts=31),
+    batch_size=32,
+    augment=AugmentConfig(part_convention="s31-smpl-prefix"),
+)
 
 # The reference's best recipe (CONFIG4_MIXED): ResNet-34 + rot6d, cosine
 # warm-up, clipping, and the indirect losses plus direct 3D supervision

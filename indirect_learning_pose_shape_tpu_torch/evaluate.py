@@ -1,5 +1,5 @@
-"""Evaluation on the synthetic stream (port of evaluate.py's metrics and
-`evaluate`).
+"""Evaluation (port of evaluate.py): the synthetic stream, disk datasets and
+image directories.
 
 The 3D pose/shape metrics of the genre against the stream's exact ground
 truth, and the image-space metrics of the rendered prediction:
@@ -22,12 +22,20 @@ batch count. The metrics accumulate on the device and reach the host once.
 scores the latest (or step N's) model of a training checkpoint, or its EMA
 (the preset's seed-initialised model without --checkpoint), and prints one
 JSON line. `tools/quality_eval.py` is the 3-seed protocol over `evaluate`.
+
+`evaluate_dataset` (`--dataset D.npz` or a directory of shards) scores epoch
+0 of a disk dataset in order, each raw batch cropped on the device by the
+training path's own `train.preprocess_raw_batch` (no augmentation), the
+ragged tail dropped; the 3D metrics appear when the file carries gt_pose
+and gt_betas. `evaluate_preprocessed` (`--image-dir`) scores the host-
+preprocessed batches of an image directory: image-space metrics only.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import sys
 
@@ -35,6 +43,7 @@ import torch
 
 from indirect_learning_pose_shape_tpu_torch import configs, predict, train
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
+from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
@@ -106,7 +115,8 @@ def _batch_metrics(
     model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig
 ) -> dict[str, torch.Tensor]:
     """The metrics of one batch, as device scalars: the rendered prediction
-    with running-statistics BatchNorm, and the ground-truth SMPL through
+    with running-statistics BatchNorm, and, where the batch has gt_pose and
+    gt_betas, the 3D metrics against the ground-truth SMPL through
     `cfg.model.smpl_impl` (the LBS kernel on the card)."""
     outputs = net.forward_train(model, consts, batch["image"], cfg.model, train=False)
     metrics = {"sil_iou": silhouette_iou_metric(outputs["silhouette"], batch["silhouette"])}
@@ -114,6 +124,8 @@ def _batch_metrics(
     vis = batch["kp_vis"]
     err = torch.linalg.vector_norm(outputs["kp2d"] - batch["kp2d"], dim=-1)
     metrics["kp_err_px"] = torch.sum(err * vis) / torch.clamp(torch.sum(vis), min=1.0)
+    if "gt_pose" not in batch or "gt_betas" not in batch:
+        return metrics
     gt = smpl_mod.smpl_forward(
         consts.smpl, batch["gt_pose"], batch["gt_betas"], impl=cfg.model.smpl_impl
     )
@@ -133,14 +145,75 @@ def evaluate(
     """The mean of each metric over `num_batches` batches of `cfg.batch_size`
     from the evaluation stream of `seed` (batch i is `train.make_batch(seed,
     i, ...)`, the training stream's batch i of seed `seed`)."""
+    return _mean_metrics(
+        model, consts, cfg,
+        (train.make_batch(seed, i, cfg.batch_size, consts, cfg) for i in range(num_batches)),
+    )
+
+
+def _mean_metrics(model, consts, cfg, batches) -> dict[str, float]:
+    """The mean of each metric over `batches`, accumulated on the device and
+    read to the host once."""
     sums: dict[str, torch.Tensor] = {}
-    for i in range(num_batches):
-        batch = train.make_batch(seed, i, cfg.batch_size, consts, cfg)
+    n = 0
+    for batch in batches:
         m = _batch_metrics(model, consts, batch, cfg)
         sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
+        n += 1
+    if n == 0:
+        raise ValueError("dataset yielded no full batches")
     names = sorted(sums)
-    means = (torch.stack([sums[k] for k in names]) / num_batches).tolist()
+    means = (torch.stack([sums[k] for k in names]) / n).tolist()
     return dict(zip(names, means))
+
+
+def evaluate_dataset(
+    model: net.Model,
+    consts: net.ModelConsts,
+    cfg: configs.TrainConfig,
+    dataset,
+    max_batches: int | None = None,
+) -> dict[str, float]:
+    """The mean metrics over epoch 0 of a disk dataset (`NpzDataset` or
+    `ShardedNpzDataset`), at most `max_batches` batches, in its order: each
+    raw batch prefetched to the model's device and cropped by
+    `train.preprocess_raw_batch` without augmentation. The 3D metrics
+    (PVE, MPJPE, PA-MPJPE) appear when the dataset has gt_pose and
+    gt_betas."""
+    has_gt = {"gt_pose", "gt_betas"} <= set(dataset.keys)
+    raw_keys = ("images", "masks", "kp2d", "kp_vis") + (("gt_pose", "gt_betas") if has_gt else ())
+    raw = ({k: b[k] for k in raw_keys} for b in itertools.islice(dataset.epoch(0), max_batches or None))
+    device = consts.smpl.v_template.device
+    batches = dataset_lib.prefetch_to_device(raw, size=2, device=device)
+    try:
+        return _mean_metrics(model, consts, cfg, (
+            dict(train.preprocess_raw_batch(r, cfg), **{k: r[k] for k in ("gt_pose", "gt_betas") if k in r})
+            for r in batches
+        ))
+    finally:
+        batches.close()
+
+
+def evaluate_preprocessed(
+    model: net.Model,
+    consts: net.ModelConsts,
+    cfg: configs.TrainConfig,
+    dataset,
+    max_batches: int | None = None,
+) -> dict[str, float]:
+    """The mean image-space metrics over one epoch (or `max_batches`) of a
+    host-preprocessed stream (`data/image_dir.ImageDirDataset`), its batches
+    prefetched to the model's device. An image directory carries no SMPL
+    ground truth, so no 3D metric."""
+    limit = min(max_batches or dataset.steps_per_epoch(), dataset.steps_per_epoch())
+    device = consts.smpl.v_template.device
+    batches = dataset_lib.prefetch_to_device(
+        itertools.islice(dataset.batches(), limit), size=2, device=device
+    )
+    try:
+        return _mean_metrics(model, consts, cfg, batches)
+    finally:
+        batches.close()
 
 
 def eval_config(
@@ -182,14 +255,13 @@ def eval_config(
 
 
 # Reference flags that need an item not ported yet.
-_REFUSED = {
-    "dataset": configs.DISK_DATA, "image_dir": configs.DISK_DATA,
-    "int8": configs.INT8, "qparams": configs.INT8, "int8_impl": configs.INT8,
-}
+_REFUSED = {"int8": configs.INT8, "qparams": configs.INT8, "int8_impl": configs.INT8}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Score a model on the synthetic stream.")
+    ap = argparse.ArgumentParser(
+        description="Score a model on the synthetic stream, a disk dataset or an image directory."
+    )
     ap.add_argument("--preset", default="config4_full", choices=sorted(configs.PRESETS))
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -202,8 +274,11 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint", default=None, help="a training run's checkpoint_dir")
     ap.add_argument("--step", type=int, default=None, help="score this checkpoint step (default: the latest)")
     ap.add_argument("--ema", action="store_true", help="score the checkpoint's EMA parameters")
-    ap.add_argument("--dataset", default=None)
-    ap.add_argument("--image-dir", default=None)
+    ap.add_argument("--dataset", default=None,
+                    help="score a disk dataset: a .npz file, or a directory or glob of .npz shards "
+                    "(the 3D metrics when it has gt_pose and gt_betas)")
+    ap.add_argument("--image-dir", default=None,
+                    help="score an image directory (images/, masks/, keypoints.npz): image-space metrics")
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--qparams", default=None)
     ap.add_argument("--int8-impl", default=None)
@@ -213,6 +288,10 @@ def main(argv=None) -> int:
             ap.error(f"--{flag.replace('_', '-')} is not ported yet; it comes with {item}")
     if (args.step is not None or args.ema) and not args.checkpoint:
         ap.error("--step and --ema need --checkpoint")
+    if args.dataset and args.image_dir:
+        ap.error("--dataset and --image-dir are two data sources: give one")
+    if (args.dataset or args.image_dir) and (args.eval_suite or args.synthetic):
+        ap.error("--eval-suite/--synthetic apply to synthetic-stream scoring only")
     try:
         cfg, _ = eval_config(
             configs.PRESETS[args.preset], args.batch_size, args.image_size, args.eval_suite, args.synthetic
@@ -225,7 +304,17 @@ def main(argv=None) -> int:
         cfg.model, asset=assets_lib.load_asset(), seed=cfg.seed, device=args.device,
         ema=args.ema, checkpoint_dir=args.checkpoint, step=args.step,
     )
-    metrics = evaluate(model, consts, cfg, num_batches=args.batches)
+    if args.image_dir:
+        from indirect_learning_pose_shape_tpu_torch.data.image_dir import ImageDirDataset
+
+        ds = ImageDirDataset(args.image_dir, cfg.batch_size, cfg.model.image_size,
+                             num_parts=cfg.model.raster.num_parts, seed=cfg.seed)
+        metrics = evaluate_preprocessed(model, consts, cfg, ds, max_batches=args.batches or None)
+    elif args.dataset:
+        ds = dataset_lib.open_dataset(args.dataset, cfg.batch_size, seed=cfg.seed)
+        metrics = evaluate_dataset(model, consts, cfg, ds, max_batches=args.batches or None)
+    else:
+        metrics = evaluate(model, consts, cfg, num_batches=args.batches)
     print(json.dumps({k: round(v, 5) for k, v in metrics.items()}))
     return 0
 

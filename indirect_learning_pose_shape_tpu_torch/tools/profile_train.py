@@ -1,7 +1,8 @@
 """Where a training step's time goes on the card.
 
     python -m indirect_learning_pose_shape_tpu_torch.tools.profile_train \\
-        [--preset config4_full] [--batch-size 32] [--out profile_train.json]
+        [--preset config4_full] [--batch-size 32] [--dataset D.npz [--augment]] \\
+        [--out profile_train.json]
 
 Builds the training state of the preset (any of `configs.PRESETS`, e.g.
 config4_mixed: ResNet-34, rot6d, clipping, the 3D targets; config4_robust:
@@ -27,6 +28,15 @@ predicted bodies stay in frame and the raster kernels see real work), runs
   hard raster as the batch makes it (its mode, shade and light) on one
   batch's bodies, between CUDA events (`tools/timing.events_ms`); it is part
   of "other" in `by_category_ms`.
+
+With `--dataset` (an .npz file or a directory of shards) the step is the
+disk step instead (`train.data_train_step` on batches that
+`prefetch_to_device` stages from the dataset, as `train.fit_dataset` does;
+`--augment` turns on the preset's mirror and crop jitter), and the result
+adds `h2d_ms_per_batch` (the side stream's copies, between CUDA events),
+`prefetch_wait_ms` (the host's median wait for a batch) and
+`preprocess_ms` (`train.preprocess_raw_batch` on one batch, between CUDA
+events).
 
 Needs one CUDA device; writes the JSON to `--out` and prints it.
 """
@@ -77,8 +87,12 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--timed", type=int, default=20)
     ap.add_argument("--profiled", type=int, default=5)
+    ap.add_argument("--dataset", default=None, help="time the disk step on this dataset (.npz or shards)")
+    ap.add_argument("--augment", action="store_true", help="with --dataset: mirror and crop jitter")
     ap.add_argument("--out", default="profile_train.json")
     args = ap.parse_args(argv)
+    if args.augment and not args.dataset:
+        ap.error("--augment applies to --dataset")
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device found", file=sys.stderr)
         return 1
@@ -86,17 +100,32 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from indirect_learning_pose_shape_tpu_torch import configs, train
+    from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
     from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build
 
     cfg = configs.PRESETS[args.preset]
     if args.batch_size:
         cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+    if args.augment:
+        cfg = dataclasses.replace(cfg, augment=dataclasses.replace(cfg.augment, enabled=True))
     ts, consts = train.init_state(cfg, device="cuda")
     with torch.no_grad():
         ts.model.ief.layers[-1].weight.mul_(0.01)
 
-    def step():
-        return train.fused_step(ts, consts, cfg)
+    if args.dataset:
+        ds = dataset_lib.open_dataset(args.dataset, cfg.batch_size, seed=cfg.seed)
+        pulls = train.dataset_pulls(cfg, ds.keys)
+        stats = dataset_lib.PrefetchStats()
+        batches = dataset_lib.prefetch_to_device(
+            ({k: b[src] for k, src in pulls.items() if src in b} for b in ds.batches()),
+            device="cuda", stats=stats,
+        )
+
+        def step():
+            return train.data_train_step(ts, next(batches), consts, cfg)
+    else:
+        def step():
+            return train.fused_step(ts, consts, cfg)
 
     for _ in range(args.warmup):
         step()
@@ -131,7 +160,17 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    if cfg.synthetic.targets == "hard":
+    if args.dataset:
+        torch.cuda.synchronize()
+        result["dataset"] = args.dataset
+        result["augment"] = args.augment
+        result["h2d_ms_per_batch"] = statistics.median(a.elapsed_time(b) for a, b in stats.h2d_events)
+        result["prefetch_wait_ms"] = statistics.median(stats.wait_s) * 1e3
+        raw = next(batches)
+        draws = train.augment_draws(cfg.seed, 0, cfg.batch_size, cfg, raw["images"].device) if args.augment else None
+        result["preprocess_ms"] = events_ms(lambda: train.preprocess_raw_batch(raw, cfg, draws), 10)
+        batches.close()
+    elif cfg.synthetic.targets == "hard":
         result["hard_raster_ms"] = hard_raster_ms(cfg, consts)
     text = json.dumps(result, indent=1)
     with open(args.out, "w") as f:

@@ -1,11 +1,12 @@
-"""Training on the synthetic stream (port of train.py's synthetic path).
+"""Training (port of train.py): the synthetic stream, disk datasets and
+host-preprocessed image directories.
 
-One fused step, like the reference's `_fused_jit`: generate a batch on the
-device (SMPL with the LBS kernel; the target render with the raster forward
-kernel, or the hard z-buffer raster with `targets='hard'`), then
-`forward_train` (bf16 ResNet with batch-statistics BatchNorm → IEF → SMPL →
-score-form render), `losses.total_loss`, backward (the raster backward
-kernel; LBS by its torch-einsum VJP) and the update.
+One fused step on the synthetic stream, like the reference's `_fused_jit`:
+generate a batch on the device (SMPL with the LBS kernel; the target render
+with the raster forward kernel, or the hard z-buffer raster with
+`targets='hard'`), then `forward_train` (bf16 ResNet with batch-statistics
+BatchNorm → IEF → SMPL → score-form render), `losses.total_loss`, backward
+(the raster backward kernel; LBS by its torch-einsum VJP) and the update.
 
     python -m indirect_learning_pose_shape_tpu_torch.train --preset config4_robust \
         --checkpoint-every 1000 --checkpoint-dir D --metrics m.jsonl --ema-decay 0.999
@@ -17,12 +18,25 @@ reference's `fold_in(rng, step)`, so a rerun sees the same stream (not the
 reference's numbers: jax.random and torch differ) and a resumed run needs
 only the step and the seed.
 
-`num_steps` is the run's total budget. With `checkpoint_every` > 0, `fit`
-resumes from the latest checkpoint in `checkpoint_dir` (the model with its
-BN statistics, the optimizer, the schedule, the EMA, the step and the seed),
-trains the remaining steps, saves at every crossing of a `checkpoint_every`
-boundary under the global step, and saves the last step when the budget is
-not a multiple of it; it refuses a directory already at or past the budget.
+Disk data (`fit_dataset`, `--dataset D.npz` or a directory of shards): raw
+batches of a `data/dataset.py` dataset, in the reference's order from the
+resumed step, are staged on the card by `prefetch_to_device`; each step
+crops and resizes them on the device (`preprocess_raw_batch`), after the
+mirror and crop jitter of `cfg.augment` (`--augment`) drawn from a generator
+seeded by (seed, step) apart from the synthetic stream's, so a resumed run
+replays the same flips and boxes. The step runs the LBS kernel with
+residuals, the raster forward and the raster backward once each; there is
+no target render. Image directories (`fit_preprocessed`, `--image-dir`) come
+already cropped by the native host preprocessor (`data/image_dir.py`), which
+also does their augmentation.
+
+`num_steps` is the run's total budget. With `checkpoint_every` > 0, each
+`fit_*` resumes from the latest checkpoint in `checkpoint_dir` (the model
+with its BN statistics, the optimizer, the schedule, the EMA, the step and
+the seed), trains the remaining steps, saves at every crossing of a
+`checkpoint_every` boundary under the global step, and saves the last step
+when the budget is not a multiple of it; it refuses a directory already at
+or past the budget.
 
 The update is the reference's optax chain, in this order:
 `optax.clip_by_global_norm` (`grad_clip_norm` > 0: gradients unchanged when
@@ -34,7 +48,7 @@ warmup_steps + 1))`, evaluated at the update count before it is
 incremented, so the first update has learning rate 0), then the EMA of the
 parameters (`ema_decay` > 0). `steps_per_call` fused steps go in one
 `fused_step` call, each with its own step's batch; in eager PyTorch that
-only sets how often `fit` logs.
+only sets how often `fit` logs, and the disk paths refuse it.
 
 Eager PyTorch: no `torch.compile`. TF32 is off, so float32 products (the
 geometry, IEF) run in IEEE float32 as the reference's HIGHEST precision.
@@ -50,13 +64,15 @@ import json
 import math
 import sys
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from indirect_learning_pose_shape_tpu_torch import configs, losses
-from indirect_learning_pose_shape_tpu_torch.data import synthetic
+from indirect_learning_pose_shape_tpu_torch.data import augment, synthetic
+from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
+from indirect_learning_pose_shape_tpu_torch.data import preprocess as pp
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
@@ -175,6 +191,16 @@ def load_state_dict(ts: TrainState, saved: dict) -> None:
     ts.step, ts.seed = int(saved["step"]), int(saved["seed"])
 
 
+# (loss weight, target name, the batch keys that carry it: the synthetic
+# stream's gt_* name first, then the bare name of npz datasets).
+_TARGETS_3D = (
+    ("j3d", "joints3d", ("gt_joints3d", "joints3d")),
+    ("v3d", "verts3d", ("gt_verts", "verts3d")),
+    ("rotmat", "rotmats", ("gt_rotmats", "rotmats")),
+    ("betas_l2", "betas", ("gt_betas", "betas")),
+)
+
+
 def loss_and_metrics(
     model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -183,18 +209,17 @@ def loss_and_metrics(
     Updates the BN running statistics in place."""
     outputs = net.forward_train(model, consts, batch["image"], cfg.model, probs=False)
     targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
+    # The direct-supervision targets: the synthetic stream names them gt_*,
+    # disk datasets carry the bare names.
     w = cfg.loss_weight_dict
-    for wkey, tkey, src in (
-        ("j3d", "joints3d", "gt_joints3d"),
-        ("v3d", "verts3d", "gt_verts"),
-        ("rotmat", "rotmats", "gt_rotmats"),
-        ("betas_l2", "betas", "gt_betas"),
-    ):
+    for wkey, tkey, candidates in _TARGETS_3D:
         if w.get(wkey, 0.0):
-            if src not in batch:
+            src = next((c for c in candidates if c in batch), None)
+            if src is None:
                 raise KeyError(
-                    f"loss weight {wkey!r} is set but the batch carries no {src!r} "
-                    "(make_batch emits the 3D targets when a j3d, v3d or rotmat weight is set)"
+                    f"loss weight {wkey!r} is set but the batch carries no {candidates} "
+                    "target: direct supervision needs a data source with 3D ground truth "
+                    "(the synthetic stream, or an npz dataset with that key)"
                 )
             targets[tkey] = batch[src]
     total, terms = losses.total_loss(outputs, targets, w, cfg.model.image_size)
@@ -250,9 +275,10 @@ def train_step(
     return {k: v.detach() for k, v in terms.items()}
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of `step`'s batch: a hash of (seed, step)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, step: int, *stream: int) -> int:
+    """The generator seed of `step`'s batch: a hash of (seed, step), or of
+    (seed, step, *stream) for another stream of the same step."""
+    return int(np.random.SeedSequence([seed, step, *stream]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def make_batch(
@@ -322,23 +348,90 @@ def _final_save(ckpt: Checkpointer, ts: TrainState, start: int, cfg: configs.Tra
         ckpt.save(ts.step, state_dict(ts))
 
 
-def fit(
-    cfg: configs.TrainConfig,
-    num_steps: Optional[int] = None,
-    asset=None,
-    device: torch.device | str = "cuda",
-    log: Optional[Callable[[dict], None]] = None,
-) -> tuple[TrainState, dict[str, float]]:
-    """Train to `num_steps` (default `cfg.num_steps`), the total budget, in
-    calls of `cfg.steps_per_call` (the remainder in one shorter call),
-    resuming from `cfg.checkpoint_dir` when `cfg.checkpoint_every` is set.
+# The stream of the augmentation draws of a step (step_seed's third word),
+# apart from the synthetic stream of make_batch.
+_AUGMENT_STREAM = 1
 
-    After each call that took a step at a multiple of `cfg.log_every`, and
-    after the last, the call's last terms go to a `MetricsWriter`
-    (`cfg.metrics_path`, `cfg.tensorboard_dir`) in one host transfer, and
-    `log`, when given, receives {"step": i, term: value, ...}, i the call's
-    last step. Returns (state, last terms)."""
+
+def augment_draws(
+    seed: int, step: int, batch_size: int, cfg: configs.TrainConfig, device: torch.device
+) -> dict[str, torch.Tensor]:
+    """The mirror and crop-jitter draws of `step` (`augment.sample_draws`)
+    from a generator seeded by (seed, step, 1): a function of the step, so a
+    resumed run replays them."""
+    gen = torch.Generator(device=device).manual_seed(step_seed(seed, step, _AUGMENT_STREAM))
+    return augment.sample_draws(gen, batch_size, cfg.augment)
+
+
+def preprocess_raw_batch(
+    raw: dict[str, torch.Tensor], cfg: configs.TrainConfig, draws: Optional[dict] = None
+) -> dict[str, torch.Tensor]:
+    """A raw disk batch (images [B, Hs, Ws, 3] uint8, masks [B, Hs, Ws] int,
+    kp2d [B, K, 2] source pixels, kp_vis [B, K]) as a training batch at
+    `cfg.model.image_size`, on its device: the square box around each mask
+    (`preprocess.bbox_from_mask`) cropped from image, mask and keypoints.
+    With `cfg.augment.enabled` and `draws` (see `augment_draws`) the mirror
+    comes first and the box is jittered; evaluation passes no draws. The 3D
+    targets pass through unchanged; mirroring a batch that carries a
+    geometric one (joints3d, verts3d, rotmats) is refused, betas alone are
+    mirror-invariant."""
+    size = cfg.model.image_size
+    num_parts = cfg.model.raster.num_parts
+    extra_3d = [k for k in ("joints3d", "verts3d", "rotmats", "betas") if k in raw]
+    if cfg.augment.enabled and draws is not None:
+        if extra_3d and extra_3d != ["betas"]:
+            raise ValueError(
+                f"augmentation (mirror) is enabled but the batch carries 3D "
+                f"targets {extra_3d}: flipping them is not implemented — "
+                "disable augmentation for direct-supervision training on "
+                "this dataset"
+            )
+        raw = augment.mirror_raw_batch(raw, draws["flip"], cfg.augment, num_parts=num_parts)
+        bboxes = augment.jitter_bboxes(pp.bbox_from_mask(raw["masks"]), draws["scale"], draws["shift"])
+    else:
+        bboxes = pp.bbox_from_mask(raw["masks"])
+    masks = pp.crop_resize_mask(raw["masks"], bboxes, size)
+    batch = {
+        "image": pp.normalize(pp.crop_resize(raw["images"], bboxes, size)),
+        "silhouette": (masks > 0).float(),
+        "part_labels": torch.clamp(masks.to(torch.int32), 0, num_parts),
+        "kp2d": pp.transform_keypoints(raw["kp2d"], bboxes, size),
+        "kp_vis": raw["kp_vis"],
+    }
+    for k in extra_3d:  # model-space labels, untouched by the 2D crop
+        batch[k] = raw[k]
+    return batch
+
+
+def data_train_step(
+    ts: TrainState, raw: dict[str, torch.Tensor], consts: net.ModelConsts, cfg: configs.TrainConfig
+) -> dict[str, torch.Tensor]:
+    """One optimizer step on a raw disk batch: the augmentation draws of
+    `ts.step` (when `cfg.augment.enabled`), `preprocess_raw_batch`, then
+    `train_step`."""
+    draws = None
+    if cfg.augment.enabled:
+        draws = augment_draws(ts.seed, ts.step, raw["images"].shape[0], cfg, raw["images"].device)
+    return train_step(ts, preprocess_raw_batch(raw, cfg, draws), consts, cfg)
+
+
+def _run(
+    cfg: configs.TrainConfig,
+    num_steps: Optional[int],
+    asset,
+    device: torch.device | str,
+    log: Optional[Callable[[dict], None]],
+    source: Optional[Callable[[int, torch.device], Iterator[dict]]] = None,
+    step: Callable = train_step,
+) -> tuple[TrainState, dict[str, float]]:
+    """The loop of every `fit_*`: init, resume, steps, logs, checkpoints.
+    Without `source` the steps are `fused_step` calls on the synthetic
+    stream; with it, `source(start step, device)` gives the device batches
+    from the resumed step and each goes through `step(ts, batch, consts,
+    cfg)`, one step a call."""
     cfg, num_steps = _fold_num_steps(cfg, num_steps)
+    if source is not None and cfg.steps_per_call != 1:
+        raise ValueError("steps_per_call applies to synthetic-stream training only")
     ts, consts = init_state(cfg, asset, device)
     ckpt = _setup_checkpoint(cfg, ts, num_steps)
     start, every = ts.step, cfg.checkpoint_every
@@ -348,14 +441,18 @@ def fit(
             f"checkpoints land once per call (every {cfg.steps_per_call} steps)",
             file=sys.stderr,
         )
+    batches = None if source is None else source(start, consts.smpl.v_template.device)
     writer = metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
     le = max(1, cfg.log_every)
     values: dict[str, float] = {}
     try:
         while ts.step < num_steps:
             first = ts.step
-            call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
-            terms = fused_step(ts, consts, call)
+            if batches is None:
+                call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
+                terms = fused_step(ts, consts, call)
+            else:
+                terms = step(ts, next(batches), consts, cfg)
             if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:
                 values = writer.write(ts.step - 1, terms)
                 if log is not None:
@@ -365,10 +462,96 @@ def fit(
         if ckpt:
             _final_save(ckpt, ts, start, cfg)
     finally:
+        if batches is not None:
+            batches.close()
         if ckpt:
             ckpt.close()
         writer.close()
     return ts, values
+
+
+def fit(
+    cfg: configs.TrainConfig,
+    num_steps: Optional[int] = None,
+    asset=None,
+    device: torch.device | str = "cuda",
+    log: Optional[Callable[[dict], None]] = None,
+) -> tuple[TrainState, dict[str, float]]:
+    """Train on the synthetic stream to `num_steps` (default
+    `cfg.num_steps`), the total budget, in calls of `cfg.steps_per_call`
+    (the remainder in one shorter call), resuming from `cfg.checkpoint_dir`
+    when `cfg.checkpoint_every` is set.
+
+    After each call that took a step at a multiple of `cfg.log_every`, and
+    after the last, the call's last terms go to a `MetricsWriter`
+    (`cfg.metrics_path`, `cfg.tensorboard_dir`) in one host transfer, and
+    `log`, when given, receives {"step": i, term: value, ...}, i the call's
+    last step. Returns (state, last terms)."""
+    return _run(cfg, num_steps, asset, device, log)
+
+
+def dataset_pulls(cfg: configs.TrainConfig, keys) -> dict[str, str]:
+    """The arrays a disk step reads, {batch name: dataset key}: the 2D ones,
+    and the 3D target of each live direct weight under its bare name or its
+    gt_* alias, whichever `keys` has first (the bare name when neither; the
+    step then refuses the batch, naming both)."""
+    pulls = {k: k for k in ("images", "masks", "kp2d", "kp_vis")}
+    w = cfg.loss_weight_dict
+    for wkey, tkey, candidates in _TARGETS_3D:
+        if w.get(wkey, 0.0):
+            bare_first = candidates[::-1]
+            pulls[tkey] = next((c for c in bare_first if c in keys), bare_first[0])
+    return pulls
+
+
+def fit_dataset(
+    cfg: configs.TrainConfig,
+    dataset,
+    num_steps: Optional[int] = None,
+    asset=None,
+    device: torch.device | str = "cuda",
+    log: Optional[Callable[[dict], None]] = None,
+) -> tuple[TrainState, dict[str, float]]:
+    """Train on a disk dataset (`data/dataset.py`: `NpzDataset`,
+    `ShardedNpzDataset`) as `fit` does on the stream: `dataset.batches`
+    from the resumed step, filtered to `dataset_pulls` before the prefetch
+    (so unused arrays never cross to the card), staged by
+    `prefetch_to_device` two batches ahead, each through `data_train_step`."""
+    pulls = dataset_pulls(cfg, getattr(dataset, "keys", frozenset()))
+
+    def source(start: int, dev: torch.device) -> Iterator[dict]:
+        raw = ({k: b[src] for k, src in pulls.items() if src in b} for b in dataset.batches(start))
+        return dataset_lib.prefetch_to_device(raw, size=2, device=dev)
+
+    return _run(cfg, num_steps, asset, device, log, source, data_train_step)
+
+
+def fit_preprocessed(
+    cfg: configs.TrainConfig,
+    dataset,
+    num_steps: Optional[int] = None,
+    asset=None,
+    device: torch.device | str = "cuda",
+    log: Optional[Callable[[dict], None]] = None,
+) -> tuple[TrainState, dict[str, float]]:
+    """Train on a stream of host-preprocessed batches at model resolution
+    (`data/image_dir.ImageDirDataset`), prefetched to the card, each through
+    `train_step`. Augmentation is the dataset's own (the mirror acts on the
+    source images before the host crop), so `cfg.augment.enabled` over a
+    dataset that does not augment is refused rather than ignored."""
+    if cfg.augment.enabled and getattr(dataset, "augment", None) is None:
+        raise ValueError(
+            "cfg.augment.enabled is set but this preprocessed dataset does "
+            "not augment: batches arrive already cropped/resized, so the "
+            "train step cannot mirror them. Construct the dataset with "
+            "augment=cfg.augment (ImageDirDataset supports host-side "
+            "mirror + crop jitter) or disable augmentation."
+        )
+
+    def source(start: int, dev: torch.device) -> Iterator[dict]:
+        return dataset_lib.prefetch_to_device(dataset.batches(start), size=2, device=dev)
+
+    return _run(cfg, num_steps, asset, device, log, source)
 
 
 def _weights(spec_list, base: tuple, error) -> tuple:
@@ -383,7 +566,7 @@ def _weights(spec_list, base: tuple, error) -> tuple:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Train on the synthetic stream.")
+    ap = argparse.ArgumentParser(description="Train on the synthetic stream, a disk dataset or an image directory.")
     ap.add_argument("--preset", default="config4_full", choices=sorted(configs.PRESETS))
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -404,6 +587,12 @@ def main(argv=None) -> int:
                     help="override one loss weight (repeatable), e.g. --loss-weight j3d=5")
     ap.add_argument("--synthetic", action="append", default=None, metavar="FIELD=VALUE",
                     help="override one synthetic-stream field (repeatable), e.g. pose_std=0.35")
+    ap.add_argument("--dataset", default=None,
+                    help="train on a disk dataset: a .npz file, or a directory or glob of .npz shards")
+    ap.add_argument("--image-dir", default=None,
+                    help="train on an image directory (images/, masks/, keypoints.npz; data/image_dir.py)")
+    ap.add_argument("--augment", action="store_true",
+                    help="random mirror and crop jitter of the disk data, drawn per step (resume replays them)")
     ap.add_argument("--log-every", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--checkpoint-every", type=int, default=None,
@@ -421,8 +610,21 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
+    disk = args.dataset or args.image_dir
+    if args.dataset and args.image_dir:
+        ap.error("--dataset and --image-dir are two data sources: give one")
+    for flag, given in (("--synthetic", args.synthetic), ("--steps-per-call", args.steps_per_call)):
+        if given is not None and disk:
+            ap.error(f"{flag} applies to synthetic-stream training only")
+    if args.augment and not disk:
+        ap.error("--augment applies to disk data (--dataset or --image-dir)")
+
     cfg = configs.PRESETS[args.preset]
     updates = {}
+    if args.augment:
+        # replace(), not a fresh AugmentConfig: a preset's part convention
+        # (config4_parts31) stays.
+        updates["augment"] = dataclasses.replace(cfg.augment, enabled=True)
     if args.batch_size:
         updates["batch_size"] = args.batch_size
     if args.lr:
@@ -463,12 +665,25 @@ def main(argv=None) -> int:
     if args.debug_nans:
         debug.enable_nan_checks()
     trace = metrics.profile_trace(args.profile) if args.profile else contextlib.nullcontext()
+    def log(rec):
+        print(json.dumps(rec), flush=True)
+
     t0 = time.time()
     with trace:
-        _, terms = fit(
-            cfg, num_steps=args.steps, device=args.device,
-            log=lambda rec: print(json.dumps(rec), flush=True),
-        )
+        if args.image_dir:
+            from indirect_learning_pose_shape_tpu_torch.data.image_dir import ImageDirDataset
+
+            ds = ImageDirDataset(
+                args.image_dir, cfg.batch_size, cfg.model.image_size,
+                num_parts=cfg.model.raster.num_parts, seed=cfg.seed,
+                augment=cfg.augment if cfg.augment.enabled else None,
+            )
+            _, terms = fit_preprocessed(cfg, ds, num_steps=args.steps, device=args.device, log=log)
+        elif args.dataset:
+            ds = dataset_lib.open_dataset(args.dataset, cfg.batch_size, seed=cfg.seed)
+            _, terms = fit_dataset(cfg, ds, num_steps=args.steps, device=args.device, log=log)
+        else:
+            _, terms = fit(cfg, num_steps=args.steps, device=args.device, log=log)
     print(f"done in {time.time() - t0:.1f}s; final: {terms}")
     return 0
 

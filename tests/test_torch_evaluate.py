@@ -227,10 +227,34 @@ def test_cli_checkpoint_models_differ(run_dir):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--dataset", "x.npz"], "item 15"), (["--image-dir", "imgs"], "item 15"),
     (["--int8"], "item 17"), (["--qparams", "q.npz"], "item 17"), (["--int8-impl", "int8c"], "item 17"),
 ])
 def test_cli_refusals_name_their_item(flags, item, capsys):
     with pytest.raises(SystemExit):
         evaluate.main(["--device", "cpu", *flags])
     assert item in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def disk_data(tmp_path_factory, tiny_asset):
+    """A 4-example dataset at 48² (with gt_pose and gt_betas) and the same
+    as an image directory."""
+    from indirect_learning_pose_shape_tpu_torch.data import dataset, image_dir
+
+    d = tmp_path_factory.mktemp("disk")
+    arrays = dataset.make_synthetic_dataset(str(d / "d.npz"), 4, source_size=48, asset=tiny_asset, device="cpu")
+    image_dir.export_image_dir(arrays, str(d / "imgs"))
+    return d
+
+
+@pytest.mark.parametrize("flag, path, metrics", [
+    ("--dataset", "d.npz", {"sil_iou", "part_acc", "miou", "kp_err_px", "pve", "mpjpe", "pa_mpjpe"}),
+    ("--image-dir", "imgs", {"sil_iou", "part_acc", "miou", "kp_err_px"}),
+])
+def test_cli_scores_disk_data(disk_data, flag, path, metrics, capsys):
+    """--dataset scores a dataset file (the 3D metrics from its gt_pose and
+    gt_betas) and --image-dir an image directory (image-space metrics)."""
+    capsys.readouterr()
+    assert evaluate.main([*_SMALL, "--batches", "2", flag, str(disk_data / path)]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == metrics and all(np.isfinite(v) for v in got.values())

@@ -130,17 +130,19 @@ def test_load_model_from_npz(tiny_asset, reference, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules, serving and a training step on hard targets with
-    appearance randomisation on the CPU, import neither jax nor the JAX
-    package."""
+    """The port's modules, serving, a training step on hard targets with
+    appearance randomisation and one on a written disk dataset with
+    augmentation, on the CPU, import neither jax nor the JAX package."""
     code = (
         "import dataclasses, sys, torch\n"
         "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train\n"
-        "from indirect_learning_pose_shape_tpu_torch.data import synthetic\n"
+        "from indirect_learning_pose_shape_tpu_torch.data import augment, dataset, image_dir, native_preprocess\n"
+        "from indirect_learning_pose_shape_tpu_torch.data import preprocess, synthetic\n"
         "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network\n"
         "from indirect_learning_pose_shape_tpu_torch.ops import raster, raster_hard\n"
         "from indirect_learning_pose_shape_tpu_torch.ops.kernels import lbs_cuda, raster_cuda\n"
-        "from indirect_learning_pose_shape_tpu_torch.tools import profile_serve, profile_train, quality_eval\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import make_synthetic_dataset, profile_serve\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import profile_train, quality_eval, shard_dataset\n"
         "from indirect_learning_pose_shape_tpu_torch.utils import checkpoint, debug, metrics\n"
         "from indirect_learning_pose_shape_tpu_torch.utils.assets import synthetic_asset\n"
         "cfg = network.ModelConfig(image_size=64,\n"
@@ -155,6 +157,11 @@ def test_port_imports_no_jax():
         "    synthetic=configs.CONFIG4_ROBUST.synthetic)\n"
         "_, terms = train.fit(tcfg, num_steps=1, asset=asset, device='cpu')\n"
         "assert terms['total'] > 0\n"
+        "arrays = dataset.make_synthetic_dataset(None, 2, source_size=64, asset=asset, device='cpu')\n"
+        "dcfg = dataclasses.replace(tcfg, augment=dataclasses.replace(tcfg.augment, enabled=True))\n"
+        "_, terms = train.fit_dataset(dcfg, dataset.NpzDataset(arrays, 2), num_steps=1, asset=asset, device='cpu')\n"
+        "assert terms['total'] > 0\n"
+        "native_preprocess.crop_resize_normalize([arrays['images'][0]], [[32.0, 32.0, 40.0]], 16)\n"
         "m = evaluate.evaluate(model, consts, tcfg, num_batches=1)\n"
         "assert 0.0 <= m['sil_iou'] <= 1.0 and m['pve'] > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
