@@ -93,12 +93,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
    against the plain versions on its first batch; the image-directory path
    (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
    line saying which held.
+10. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
+   16 synthetic images (seed 999), the qparams file read back bitwise, a
+   `keep_sites=('stem',)` variant; a `Predictor(qparams)` per impl
+   (int8, int8c, sim, simc) at batches 1, 8, 32, 128: each site's int8
+   product (`torch._int_mm`) against its float32 twin on the same input,
+   the impls against their twins end to end by cosine, int8c against the
+   bf16 encoder (the reference's cosine and mean relative error bounds),
+   padding, one LBS launch on every int8c request and one raster forward
+   on every render, median latency per bucket (bf16, int8, int8c), the
+   encoders' device time at 128 and profiled requests at 1 and 128;
+   `evaluate` of int8 against sim on 2 x 32 images (3 LBS, 2 raster
+   forward launches a batch); the `torch.export` artifacts (bf16, int8c)
+   at batch 8 against the eager forward with the plain SMPL, seconds and
+   MB; `predict.main --demo --num 4 --int8 --qparams` (4 meshes read back;
+   overlays where matplotlib imports, else a line says they were not
+   driven); `fit_to_silhouette` for 30 steps (the loss falls; exactly one
+   LBS, raster forward and raster backward launch a step; a profiled
+   window); `train.init_state` from a pretrained npz and a mean-parameter
+   file written in the phase.
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
 training main path, on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
-(`launches_disk`) and in the dataset writer (`launches_dataset`), its
+(`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
+requests and their evaluation (`launches_int8`) and in the example
+(`launches_fit`), its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -365,6 +386,39 @@ def jittered_render(scale: float, seed: int):
         yield
     finally:
         raster.soft_rasterize_train = plain
+
+
+class _CulledPlain(torch.autograd.Function):
+    """The culled function the raster kernels compute, in plain torch, as an
+    autograd pair: `raster_scores_culled_torch` forward,
+    `raster_scores_bwd_culled_torch` backward; vx [B, C*S, 2]."""
+
+    @staticmethod
+    def forward(ctx, vx, real, num_parts, seg_size, rcfg):
+        ctx.save_for_backward(vx, real)
+        ctx.meta = (num_parts, seg_size, rcfg)
+        return raster_cuda.raster_scores_culled_torch(vx, real, num_parts, seg_size, rcfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        vx, real = ctx.saved_tensors
+        num_parts, seg_size, rcfg = ctx.meta
+        dv = raster_cuda.raster_scores_bwd_culled_torch(vx, g.contiguous(), real, num_parts, seg_size, rcfg)
+        return dv.transpose(1, 2), None, None, None, None
+
+
+@contextlib.contextmanager
+def culled_plain_raster():
+    """Inside the block every raster score (`raster_cuda.raster_scores4`,
+    whatever its impl) is the culled plain version, with its gradient."""
+    kernel = raster_cuda.raster_scores4
+    raster_cuda.raster_scores4 = lambda vx, real, num_parts, seg_size, rcfg, impl="kernel": _CulledPlain.apply(
+        vx, real, num_parts, seg_size, rcfg
+    )
+    try:
+        yield
+    finally:
+        raster_cuda.raster_scores4 = kernel
 
 
 def norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1604,6 +1658,358 @@ def disk_phase(asset, smi) -> dict:
             "device_ms": dev["device_ms"], "busy": dev["device_ms"] / wall, "native": native}
 
 
+# The int8 serving and tools phase: request batches (each its own bucket),
+# the reference's feature bounds (tests/test_quantize.py), evaluation and
+# export sizes, the example's steps. The reference holds int8 to sim
+# within 1e-3 at width 16; at full width one requantization step that the
+# float32 sum order moves (sim) changes the next sites' inputs, and the
+# flips grow through the blocks. The reference's own int8 and sim part the
+# same way at full width on the CPU (tests/test_torch_quantize.py,
+# `test_full_width_int8_vs_sim_gap_matches_reference`), so the int8 product
+# is held to its float32 twin per site, on the same input, and the paths
+# end to end by cosine.
+INT8_BUCKETS = (1, 8, 32, 128)
+INT8_SIM_TOL = 1e-3  # each site's int8 product vs its float32 twin: allclose rtol = atol
+INT8_TWIN_GAP = 1e-4  # int8 vs sim and int8c vs simc end to end: 1 - cosine
+INT8_COS_MIN = 0.99  # int8c vs the bf16 encoder
+INT8_REL_MAX = 0.2  # int8c vs the bf16 encoder: mean relative error
+INT8_EVAL_BATCHES = 2
+EXPORT_BATCH = 8
+FIT_STEPS = 30
+PER_FIT_STEP = {lbs_cuda.KERNEL: 1, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1}
+
+
+def int8_site_errors(qenc, images: torch.Tensor) -> tuple[float, float]:
+    """Along the per-site int8 path, each conv's int8 product (`_int_mm`)
+    against its float32 twin ('sim') on the same input, both through
+    `quantize.site_conv`: (the largest excess over allclose(rtol = atol =
+    INT8_SIM_TOL), the largest abs difference)."""
+    from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+
+    worst = [float("-inf"), 0.0]
+
+    def conv_op(x, site, stride, stem):
+        q = qenc.site(site)
+        a = quant.site_conv(q, x, stride, stem, "int8")
+        b = quant.site_conv(q, x, stride, stem, "sim")
+        d = (a - b).abs()
+        worst[0] = max(worst[0], (d - INT8_SIM_TOL * b.abs()).max().item())
+        worst[1] = max(worst[1], d.max().item())
+        return a
+
+    with torch.inference_mode():
+        qenc.walk(images, conv_op)
+    return worst[0], worst[1]
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def int8_phase(cfg, model, consts, asset, smi) -> dict:
+    """The int8 serving path and the tools around it, on config4_full's
+    serving model: `ptq_quantize` on 16 synthetic images (seed 999) and the
+    qparams file read back bitwise (and a `keep_sites=('stem',)` variant);
+    `Predictor(qparams)` per impl at batches 1, 8, 32, 128 (features against
+    the float32-sum twins and the bf16 encoder, padding, the kernels'
+    launches on every request and render, latency per bucket, the int8
+    encoder's device time at 128); `evaluate` of int8 against sim; the
+    `torch.export` artifacts against the eager forward; the `predict` CLI
+    writing meshes (and overlays where matplotlib imports);
+    `fit_to_silhouette` for FIT_STEPS steps; `train.init_state` from a
+    pretrained npz and a mean-parameter file written here."""
+    from indirect_learning_pose_shape_tpu_torch import export
+    from indirect_learning_pose_shape_tpu_torch.examples import fit_to_silhouette
+    from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
+    from indirect_learning_pose_shape_tpu_torch.models import pretrained
+    from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+
+    t_phase = time.perf_counter()
+    tcfg = configs.CONFIG4_FULL
+    dev = consts.smpl.v_template.device
+    size = cfg.image_size
+    lbs_k, fwd_k = lbs_cuda.KERNEL, raster_cuda.KERNEL
+    with tempfile.TemporaryDirectory(prefix="ilps_int8_") as work:
+        # --- Quantize; the file read back bitwise. ---------------------------
+        calib = predict.synthetic_images(consts, cfg, 16, seed=999, synthetic_cfg=tcfg.synthetic)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp = quant.ptq_quantize(model.encoder, calib)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        qpath = os.path.join(work, "q.npz")
+        quant.save_qparams(qpath, qp)
+        back = quant.load_qparams(qpath)
+        check(set(back) == set(qp), "qparams file: sites differ")
+        for site, d in qp.items():
+            check(set(back[site]) == set(d), f"qparams file: {site} fields differ")
+            for k, v in d.items():
+                check(back[site][k].dtype == v.dtype and torch.equal(back[site][k], v.cpu()),
+                      f"qparams file: {site}::{k} not read back bitwise")
+        qp_keep = quant.ptq_quantize(model.encoder, calib, keep_sites=("stem",))
+        check({s for s, d in qp_keep.items() if "w_bf16" in d} == {"stem"}, "keep_sites=('stem',): kept sites")
+        print(f"[int8] ptq_quantize on 16 images: {q_s:.3f} s, {len(qp)} sites, "
+              f"{os.path.getsize(qpath) / 1e6:.2f} MB file read back bitwise; keep_sites=('stem',) keeps the stem")
+
+        # --- Predictors per impl; requests from the stream (seed 5). --------
+        reqs = {n: predict.synthetic_images(consts, cfg, n, seed=5).cpu().numpy() for n in INT8_BUCKETS}
+        p_bf16 = serve.Predictor(cfg, model, consts)
+        preds = {impl: serve.Predictor(cfg, model, consts, qparams=qp, int8_impl=impl) for impl in quant.IMPLS}
+        preds["int8c keep stem"] = serve.Predictor(cfg, model, consts, qparams=qp_keep, int8_impl="int8c")
+        for p in (p_bf16, *preds.values()):
+            p.warmup(INT8_BUCKETS)
+        torch.cuda.synchronize()
+
+        # The main path, counted: int8c requests and their renders.
+        p8c = preds["int8c"]
+        _build.reset_counts()
+        results = {}
+        for n, x in reqs.items():
+            before = _build.counts()
+            out = p8c(x)
+            torch.cuda.synchronize()
+            mid = _build.counts()
+            rend = predict.render_silhouette(out, consts, cfg)
+            torch.cuda.synchronize()
+            after = _build.counts()
+            check(mid.get(lbs_k, 0) == before.get(lbs_k, 0) + 1, f"int8c request {n}: LBS launches {before} -> {mid}")
+            check(after.get(fwd_k, 0) == mid.get(fwd_k, 0) + 1, f"int8c render {n}: raster launches {mid} -> {after}")
+            results[n] = (out, rend)
+        launches = _build.counts()
+        print(f"[int8] kernel launches during {len(reqs)} int8c requests and renders: {launches}")
+
+        # The same requests with the plain versions forced: the LBS kernel
+        # against plain SMPL on the same features, the raster kernel against
+        # the plain raster on the same vertices.
+        cfg_t = dataclasses.replace(cfg, smpl_impl="torch", raster_impl="torch")
+        p_t = serve.Predictor(cfg_t, model, consts, qparams=qp, int8_impl="int8c")
+        v_err = s_err = 0.0
+        for n, x in reqs.items():
+            out, rend = results[n]
+            v_err = max(v_err, max_err(out["verts"], p_t(x)["verts"]))
+            s_err = max(s_err, max_err(rend["silhouette"], predict.render_silhouette(out, consts, cfg_t)["silhouette"]))
+            check(v_err <= TOL and s_err <= TOL, f"int8c request {n}, kernels vs plain: verts {v_err}, sil {s_err}")
+        print(f"[int8] kernels vs plain versions on the int8c requests ({', '.join(map(str, reqs))}): "
+              f"verts {v_err:.3e}, silhouette {s_err:.3e} (max abs, bound {TOL})")
+        del p_t
+
+        site_excess = site_err = 0.0
+        feat_err = {"int8 vs sim": 0.0, "int8c vs simc": 0.0}
+        twin_cos = {"int8 vs sim": 1.0, "int8c vs simc": 1.0}
+        cos_min, rel_max = 1.0, 0.0
+        for n, x in reqs.items():
+            xd = torch.from_numpy(x).to(dev)
+            excess, err = int8_site_errors(preds["int8"].qenc, xd)
+            check(excess <= INT8_SIM_TOL, f"int8 product vs float32 twin at batch {n}: beyond rtol = atol = {INT8_SIM_TOL}")
+            site_excess, site_err = max(site_excess, excess), max(site_err, err)
+            with torch.inference_mode():
+                f = {impl: preds[impl].qenc(xd, impl) for impl in quant.IMPLS}
+                f_bf16 = enc.encoder_apply(model.encoder, xd)
+            for label, (a, b) in (("int8 vs sim", ("int8", "sim")), ("int8c vs simc", ("int8c", "simc"))):
+                feat_err[label] = max(feat_err[label], (f[a] - f[b]).abs().max().item())
+                twin_cos[label] = min(twin_cos[label], cosine(f[a], f[b]))
+                check(1.0 - twin_cos[label] <= INT8_TWIN_GAP,
+                      f"{label} at batch {n}: 1 - cosine {1.0 - twin_cos[label]} > {INT8_TWIN_GAP}")
+            cos = cosine(f["int8c"], f_bf16)
+            rel = float((f["int8c"] - f_bf16).abs().mean() / (f_bf16.abs().mean() + 1e-9))
+            cos_min, rel_max = min(cos_min, cos), max(rel_max, rel)
+            out, rend = results[n]
+            for k in ("verts", "kp2d", "theta"):
+                check(bool(torch.isfinite(out[k]).all()), f"int8c {k} not finite at batch {n}")
+            check(tuple(out["verts"].shape) == (n, consts.smpl.num_verts, 3), f"int8c verts shape at {n}")
+            check(bool(torch.isfinite(rend["silhouette"]).all()), f"int8c silhouette not finite at {n}")
+        check(cos_min > INT8_COS_MIN and rel_max < INT8_REL_MAX,
+              f"int8c vs bf16 features: cosine {cos_min}, mean relative error {rel_max}")
+        with torch.inference_mode():
+            xk = torch.from_numpy(reqs[8]).to(dev)
+            fk = preds["int8c keep stem"].qenc(xk, "int8c")
+            check(bool(torch.isfinite(fk).all()), "keep_sites=('stem',) features not finite")
+        print(f"[int8] int8 product vs float32 twin per site, same input: max abs {site_err:.3e} "
+              f"(allclose rtol = atol = {INT8_SIM_TOL}); features end to end, max abs / 1 - cosine "
+              f"(bound {INT8_TWIN_GAP}): "
+              + ", ".join(f"{k} {feat_err[k]:.3e} / {1.0 - twin_cos[k]:.3e}" for k in feat_err)
+              + f"; int8c vs bf16: cosine >= {cos_min:.5f}, mean relative error <= {rel_max:.4f}")
+
+        # Padding: the 3 first images of the 8-image stream in bucket 4 vs alone in bucket 1.
+        p4 = serve.Predictor(cfg, model, consts, buckets=(1, 4), qparams=qp, int8_impl="int8c")
+        x3 = reqs[8][:3]
+        out3 = p4(x3)
+        half = 0.5 * (size - 1)
+        pad_err = 0.0
+        for i in range(3):
+            o1 = p4(x3[i : i + 1])
+            for k, v in out3.items():
+                pad_err = max(pad_err, max_err(v[i : i + 1], o1[k]) / (half if k == "kp2d" else 1.0))
+        check(pad_err <= TOL, f"int8c padded rows differ from the images alone: {pad_err}")
+        print(f"[int8] int8c padded request (bucket 4) vs images alone (bucket 1), all outputs: {pad_err:.3e}")
+
+        lat = {}
+        for n, x in reqs.items():
+            row = {label: request_ms(lambda p=p: request(p, cfg, consts, x), 20)
+                   for label, p in (("bf16", p_bf16), ("int8", preds["int8"]), ("int8c", p8c))}
+            lat[n] = row
+            print(f"[int8] request batch {n}, median ms with silhouette: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in row.items()) + f" [{smi}]")
+        big = INT8_BUCKETS[-1]
+        xb = torch.from_numpy(reqs[big]).to(dev)
+        with torch.inference_mode():
+            enc_ms = {
+                "bf16": events_ms(lambda: enc.encoder_apply(model.encoder, xb), 5),
+                "int8": events_ms(lambda: p8c.qenc(xb, "int8"), 5),
+                "int8c": events_ms(lambda: p8c.qenc(xb, "int8c"), 5),
+            }
+        print(f"[int8] encoder device ms at batch {big}: " + ", ".join(f"{k} {v:.3f}" for k, v in enc_ms.items())
+              + f" [{smi}]")
+        from torch.profiler import ProfilerActivity, profile
+
+        for n in (1, big):
+            x = reqs[n]
+            for label, p in (("bf16", p_bf16), ("int8c", p8c)):
+                request(p, cfg, consts, x)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        request(p, cfg, consts, x)
+                    torch.cuda.synchronize()
+                summ = device_summary(prof, 5)
+                print(f"[int8] profiled request batch {n}, {label}: device {summ['device_ms']:.3f} ms, "
+                      f"{summ['kernels']:.1f} device items, by category "
+                      + json.dumps({k: round(v, 4) for k, v in summ["by_category_ms"].items()})
+                      + "; largest: " + json.dumps([[round(ms, 4), name[:60], k] for ms, name, k in summ["top"][:5]]))
+
+        # --- Evaluation: int8 against sim. ----------------------------------
+        ecfg = tcfg
+        _build.reset_counts()
+        m8 = evaluate.evaluate(model, consts, ecfg, INT8_EVAL_BATCHES, qparams=qp, int8_impl="int8")
+        eval_launches = _build.counts()
+        for name, per in {lbs_k: 3, fwd_k: 2}.items():  # batch, forward, ground truth
+            check(eval_launches.get(name, 0) == per * INT8_EVAL_BATCHES,
+                  f"int8 evaluate: kernel {name} launched {eval_launches.get(name, 0)} times")
+        ms = evaluate.evaluate(model, consts, ecfg, INT8_EVAL_BATCHES, qparams=qp, int8_impl="sim")
+        diff = {k: abs(m8[k] - ms[k]) / (1.0 if k in EVAL_ABS else max(abs(ms[k]), 1e-12)) for k in m8}
+        for k, d in diff.items():
+            tol = EVAL_ABS_TOL if k in EVAL_ABS else EVAL_REL_TOL
+            check(np.isfinite(m8[k]) and d <= tol, f"int8 evaluate vs sim: {k} differs by {d} > {tol}")
+        print(f"[int8] evaluate int8, {INT8_EVAL_BATCHES} x {ecfg.batch_size}: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in sorted(m8.items()))
+              + "; vs sim: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diff.items()))
+              + f"; launches {eval_launches}")
+        for k, v in eval_launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+        # --- Export: the artifacts against the eager forward, plain SMPL. ---
+        plain = dataclasses.replace(cfg, smpl_impl="torch")
+        xe = torch.from_numpy(reqs[8]).to(dev)
+        exp = {}
+        for label, build in (
+            ("bf16", lambda: export.export_forward(cfg, model, consts, EXPORT_BATCH, device=dev)),
+            ("int8c", lambda: export.export_forward_int8(cfg, model, consts, EXPORT_BATCH, device=dev, qparams=qp)),
+        ):
+            t0 = time.perf_counter()
+            blob = build()
+            secs = time.perf_counter() - t0
+            fn = export.load_exported(blob)
+            with torch.inference_mode():
+                theta, verts, kp2d = fn(xe)
+            eager = serve.Predictor(plain, model, consts, buckets=(EXPORT_BATCH,),
+                                    qparams=None if label == "bf16" else qp)(xe)
+            err = max(max_err(theta, eager["theta"]), max_err(verts, eager["verts"]),
+                      max_err(kp2d, eager["kp2d"]) / half)
+            check(err <= TOL, f"export {label}: artifact vs eager {err}")
+            exp[label] = {"seconds": secs, "mb": len(blob) / 1e6, "err": err}
+            print(f"[int8] export {label} at batch {EXPORT_BATCH}: {secs:.2f} s, {len(blob) / 1e6:.1f} MB, "
+                  f"artifact vs eager (plain SMPL) {err:.3e}")
+
+        # --- The predict CLI. ----------------------------------------------
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            mpl = False
+        else:
+            mpl = True
+        vis = os.path.join(work, "vis")
+        cli_q = os.path.join(work, "cli_q.npz")
+        argv = ["--demo", "--num", "4", "--int8", "--qparams", cli_q, "--out", vis, "--device", str(dev)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            check(predict.main(argv + ([] if mpl else ["--no-overlays"])) == 0, "predict CLI exit code")
+        cli_s = time.perf_counter() - t0
+        check(os.path.exists(cli_q), "predict CLI did not write its qparams")
+        for i in range(4):
+            with open(os.path.join(vis, f"mesh_{i}.obj")) as f:
+                verts = [ln for ln in f if ln.startswith("v ")]
+            check(len(verts) == consts.smpl.num_verts, f"mesh_{i}.obj has {len(verts)} vertices")
+            if mpl:
+                check(os.path.getsize(os.path.join(vis, f"overlay_{i}.png")) > 1000, f"overlay_{i}.png")
+        print(f"[int8] predict --demo --num 4 --int8 --qparams: {cli_s:.2f} s, 4 meshes of "
+              f"{consts.smpl.num_verts} vertices; " + said.getvalue().strip().splitlines()[-1])
+        if not mpl:
+            print("[int8] overlays: matplotlib does not import here, so the overlay writer was not driven")
+
+        # --- The example: SMPL, raster forward and backward kernels. --------
+        prob = fit_to_silhouette.make_problem(asset, 128, 4, dev)
+        params = fit_to_silhouette.initial_params(4, dev)
+        fit_to_silhouette.step(prob, params, 0.05)  # warm-up
+        params = fit_to_silhouette.initial_params(4, dev)
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        history = fit_to_silhouette.fit(prob, params, FIT_STEPS, 0.05)
+        fit_ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+        fit_launches = _build.counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fit_to_silhouette.fit(prob, params, 5, 0.05)
+        fit_dev = device_summary(prof, 5)
+        for name, per in PER_FIT_STEP.items():
+            check(fit_launches.get(name, 0) == per * FIT_STEPS,
+                  f"fit_to_silhouette: kernel {name} launched {fit_launches.get(name, 0)} times in {FIT_STEPS} steps")
+        check(history[-1] < history[0], f"fit_to_silhouette: loss did not fall {history[0]} -> {history[-1]}")
+
+        # One step's loss and gradients on the same problem, kernels against
+        # plain SMPL with the culled plain raster (the function the raster
+        # kernels compute) within GRAD_TOL, and against the exact plain
+        # raster within CULL_TOL: the BCE cotangent, large where the
+        # prediction is near 0 or 1, multiplies the tails the culling leaves out.
+        def step1(p):
+            return fit_to_silhouette.loss_and_grads(p, fit_to_silhouette.initial_params(4, dev))
+
+        plain_prob = dataclasses.replace(prob, smpl_impl="torch", raster_impl="torch")
+        lk, gk = step1(prob)
+        with culled_plain_raster():
+            lc, gc = step1(plain_prob)
+        lt, gt = step1(plain_prob)
+        fit_err = {}
+        for label, (l, g), tol in (("culled plain", (lc, gc), GRAD_TOL), ("exact plain", (lt, gt), CULL_TOL)):
+            errs = {"loss": abs(float(lk) - float(l)) / abs(float(l)), **{k: norm_err(gk[k], v) for k, v in g.items()}}
+            check(max(errs.values()) <= tol, f"fit_to_silhouette step 1, kernels vs {label}: {errs} > {tol}")
+            fit_err[label] = errs
+        print("[int8] fit_to_silhouette step 1, kernels vs plain versions, loss rel / gradients normalised: "
+              + "; ".join(f"{label} (bound {tol}) " + ", ".join(f"{k} {v:.3e}" for k, v in fit_err[label].items())
+                          for label, tol in (("culled plain", GRAD_TOL), ("exact plain", CULL_TOL))))
+        print(f"[int8] fit_to_silhouette (128², B=4): loss {history[0]:.4f} -> {history[-1]:.4f} in {FIT_STEPS} "
+              f"steps, {fit_ms:.3f} ms/step host wall, launches {fit_launches}; profiled: device "
+              f"{fit_dev['device_ms']:.3f} ms, {fit_dev['kernels']:.1f} device items a step [{smi}]")
+
+        # --- Weight import: init_state from the files written here. ---------
+        donor = enc.Encoder(tcfg.model.encoder, torch.Generator().manual_seed(7))
+        enc_path = os.path.join(work, "enc18.npz")
+        pretrained.save_encoder_npz(enc_path, *pretrained.encoder_trees(donor), 18)
+        theta0 = np.random.RandomState(7).randn(tcfg.model.ief.theta_dim).astype(np.float32)
+        mean_path = os.path.join(work, "mean.npz")
+        np.savez(mean_path, mean_theta=theta0)
+        ts, _ = train.init_state(dataclasses.replace(tcfg, pretrained=enc_path, mean_params=mean_path), asset, device=dev)
+        got = ts.model.encoder.state_dict()
+        for k, v in donor.state_dict().items():
+            check(torch.equal(got[k].cpu(), v), f"init_state pretrained: {k} differs from the file")
+        check(np.array_equal(ts.model.ief.mean_theta.detach().cpu().numpy(), theta0), "init_state mean_params")
+        print(f"[int8] init_state from a pretrained npz and a mean-parameter file: {len(got)} encoder tensors "
+              "and mean_theta equal the files'")
+    torch.cuda.empty_cache()
+    print(f"[int8] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "fit_launches": fit_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1643,6 +2049,7 @@ def main() -> int:
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
     disk = disk_phase(asset, smi)
+    int8 = int8_phase(cfg, model, consts, asset, smi)
 
     def entry(name, source, replaces, **numbers):
         return dict(
@@ -1656,6 +2063,8 @@ def main() -> int:
             launches_robust=robust["launches"].get(name, 0),
             launches_disk=disk["launches"].get(name, 0),
             launches_dataset=disk["dataset_launches"].get(name, 0),
+            launches_int8=int8["launches"].get(name, 0),
+            launches_fit=int8["fit_launches"].get(name, 0),
             **{"library_ms": None, **numbers},
         )
 

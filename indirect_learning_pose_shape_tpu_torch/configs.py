@@ -9,10 +9,12 @@ honours are `model`, `synthetic`, `batch_size`, `learning_rate`,
 `lr_schedule`, `warmup_steps`, `grad_clip_norm`, `weight_decay`,
 `num_steps`, `seed`, `loss_weights`, `steps_per_call`, `log_every`,
 `ema_decay`, `checkpoint_every`, `checkpoint_dir`, `metrics_path`,
-`tensorboard_dir` and `augment` (mirror and crop jitter on disk data,
-data/augment.py; train.py says how each acts). The others exist only so
-that a non-default value is refused with the ROADMAP item that brings it,
-never ignored.
+`tensorboard_dir`, `augment` (mirror and crop jitter on disk data,
+data/augment.py), `pretrained` (a backbone npz of
+`tools/import_resnet_weights.py`) and `mean_params` (IEF's Θ₀ from a file);
+train.py says how each acts. `num_devices` and `render_devices` exist only
+so that a non-default value is refused with the ROADMAP item that brings
+it, never ignored.
 
 10 of the reference's 11 presets are here; `config5_data_parallel` waits
 for item 16 (multi-GPU).
@@ -31,13 +33,9 @@ from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
 
 # The ROADMAP items that bring what this port refuses.
 MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
-PRETRAINED = "ROADMAP.md, Queue 1 item 17 (pretrained weights and mean-parameter files)"
-INT8 = "ROADMAP.md, Queue 1 item 17 (serving and tools: int8 post-training quantization)"
 
 # Field -> (the only value this port takes, the ROADMAP item that brings others).
 _NOT_YET = {
-    "pretrained": (None, PRETRAINED),
-    "mean_params": (None, PRETRAINED),
     "num_devices": (None, MULTI_GPU),
     "render_devices": (1, MULTI_GPU),
 }
@@ -75,9 +73,9 @@ class TrainConfig:
     metrics_path: str | None = None  # JSONL of the logged steps' terms
     tensorboard_dir: str | None = None  # TensorBoard event files of the same
     augment: AugmentConfig = AugmentConfig()  # disk-data mirror + crop jitter
+    pretrained: str | None = None  # backbone npz (models/pretrained.py)
+    mean_params: str | None = None  # IEF's Θ₀: npz 'mean_theta' or .npy
     # Refused unless at these defaults (see _NOT_YET).
-    pretrained: str | None = None
-    mean_params: str | None = None
     num_devices: int | None = None
     render_devices: int = 1
 

@@ -23,6 +23,12 @@ scores the latest (or step N's) model of a training checkpoint, or its EMA
 (the preset's seed-initialised model without --checkpoint), and prints one
 JSON line. `tools/quality_eval.py` is the 3-seed protocol over `evaluate`.
 
+With `qparams` (`--int8`, calibrated on 16 images of the stream at seed
+999, or `--qparams FILE`) every entry point scores the int8 encoder
+(models/quantize.py) under `int8_impl` ('int8' by default, as the
+reference; `--int8-impl int8c|sim|simc`), with the model's head and the
+same render: the accuracy cost of the deployed quantized model.
+
 `evaluate_dataset` (`--dataset D.npz` or a directory of shards) scores epoch
 0 of a disk dataset in order, each raw batch cropped on the device by the
 training path's own `train.preprocess_raw_batch` (no augmentation), the
@@ -45,6 +51,7 @@ from indirect_learning_pose_shape_tpu_torch import configs, predict, train
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
@@ -112,13 +119,23 @@ def part_metrics(
 
 @torch.no_grad()
 def _batch_metrics(
-    model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig
+    model: net.Model,
+    consts: net.ModelConsts,
+    batch: dict,
+    cfg: configs.TrainConfig,
+    qenc: quant.QuantizedEncoder | None = None,
+    int8_impl: str = "int8",
 ) -> dict[str, torch.Tensor]:
     """The metrics of one batch, as device scalars: the rendered prediction
-    with running-statistics BatchNorm, and, where the batch has gt_pose and
+    with running-statistics BatchNorm (or through the quantized encoder
+    `qenc` under `int8_impl`), and, where the batch has gt_pose and
     gt_betas, the 3D metrics against the ground-truth SMPL through
     `cfg.model.smpl_impl` (the LBS kernel on the card)."""
-    outputs = net.forward_train(model, consts, batch["image"], cfg.model, train=False)
+    if qenc is None:
+        outputs = net.forward_train(model, consts, batch["image"], cfg.model, train=False)
+    else:
+        outputs = quant.quantized_forward(qenc, model.ief, consts, batch["image"], cfg.model, int8_impl)
+        outputs = net.render_outputs(outputs, consts, cfg.model)
     metrics = {"sil_iou": silhouette_iou_metric(outputs["silhouette"], batch["silhouette"])}
     metrics["part_acc"], metrics["miou"] = part_metrics(outputs["probs"], batch["part_labels"])
     vis = batch["kp_vis"]
@@ -141,23 +158,32 @@ def evaluate(
     cfg: configs.TrainConfig,
     num_batches: int = 4,
     seed: int = 123,
+    qparams=None,
+    int8_impl: str = "int8",
 ) -> dict[str, float]:
     """The mean of each metric over `num_batches` batches of `cfg.batch_size`
     from the evaluation stream of `seed` (batch i is `train.make_batch(seed,
-    i, ...)`, the training stream's batch i of seed `seed`)."""
+    i, ...)`, the training stream's batch i of seed `seed`); with `qparams`,
+    of the int8 encoder under `int8_impl`."""
     return _mean_metrics(
         model, consts, cfg,
         (train.make_batch(seed, i, cfg.batch_size, consts, cfg) for i in range(num_batches)),
+        qparams, int8_impl,
     )
 
 
-def _mean_metrics(model, consts, cfg, batches) -> dict[str, float]:
+def _mean_metrics(model, consts, cfg, batches, qparams=None, int8_impl="int8") -> dict[str, float]:
     """The mean of each metric over `batches`, accumulated on the device and
     read to the host once."""
+    if int8_impl not in quant.IMPLS:
+        raise ValueError(f"int8_impl must be one of {quant.IMPLS}, got {int8_impl!r}")
+    qenc = None
+    if qparams is not None:
+        qenc = quant.as_encoder(qparams, cfg.model.encoder, consts.smpl.v_template.device)
     sums: dict[str, torch.Tensor] = {}
     n = 0
     for batch in batches:
-        m = _batch_metrics(model, consts, batch, cfg)
+        m = _batch_metrics(model, consts, batch, cfg, qenc, int8_impl)
         sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
         n += 1
     if n == 0:
@@ -173,13 +199,15 @@ def evaluate_dataset(
     cfg: configs.TrainConfig,
     dataset,
     max_batches: int | None = None,
+    qparams=None,
+    int8_impl: str = "int8",
 ) -> dict[str, float]:
-    """The mean metrics over epoch 0 of a disk dataset (`NpzDataset` or
-    `ShardedNpzDataset`), at most `max_batches` batches, in its order: each
-    raw batch prefetched to the model's device and cropped by
-    `train.preprocess_raw_batch` without augmentation. The 3D metrics
-    (PVE, MPJPE, PA-MPJPE) appear when the dataset has gt_pose and
-    gt_betas."""
+    """The mean metrics (of the int8 encoder with `qparams`) over epoch 0 of
+    a disk dataset (`NpzDataset` or `ShardedNpzDataset`), at most
+    `max_batches` batches, in its order: each raw batch prefetched to the
+    model's device and cropped by `train.preprocess_raw_batch` without
+    augmentation. The 3D metrics (PVE, MPJPE, PA-MPJPE) appear when the
+    dataset has gt_pose and gt_betas."""
     has_gt = {"gt_pose", "gt_betas"} <= set(dataset.keys)
     raw_keys = ("images", "masks", "kp2d", "kp_vis") + (("gt_pose", "gt_betas") if has_gt else ())
     raw = ({k: b[k] for k in raw_keys} for b in itertools.islice(dataset.epoch(0), max_batches or None))
@@ -189,7 +217,7 @@ def evaluate_dataset(
         return _mean_metrics(model, consts, cfg, (
             dict(train.preprocess_raw_batch(r, cfg), **{k: r[k] for k in ("gt_pose", "gt_betas") if k in r})
             for r in batches
-        ))
+        ), qparams, int8_impl)
     finally:
         batches.close()
 
@@ -200,18 +228,21 @@ def evaluate_preprocessed(
     cfg: configs.TrainConfig,
     dataset,
     max_batches: int | None = None,
+    qparams=None,
+    int8_impl: str = "int8",
 ) -> dict[str, float]:
-    """The mean image-space metrics over one epoch (or `max_batches`) of a
-    host-preprocessed stream (`data/image_dir.ImageDirDataset`), its batches
-    prefetched to the model's device. An image directory carries no SMPL
-    ground truth, so no 3D metric."""
+    """The mean image-space metrics (of the int8 encoder with `qparams`)
+    over one epoch (or `max_batches`) of a host-preprocessed stream
+    (`data/image_dir.ImageDirDataset`), its batches prefetched to the
+    model's device. An image directory carries no SMPL ground truth, so no
+    3D metric."""
     limit = min(max_batches or dataset.steps_per_epoch(), dataset.steps_per_epoch())
     device = consts.smpl.v_template.device
     batches = dataset_lib.prefetch_to_device(
         itertools.islice(dataset.batches(), limit), size=2, device=device
     )
     try:
-        return _mean_metrics(model, consts, cfg, batches)
+        return _mean_metrics(model, consts, cfg, batches, qparams, int8_impl)
     finally:
         batches.close()
 
@@ -254,8 +285,12 @@ def eval_config(
     return dataclasses.replace(cfg, model=model, **updates), specs
 
 
-# Reference flags that need an item not ported yet.
-_REFUSED = {"int8": configs.INT8, "qparams": configs.INT8, "int8_impl": configs.INT8}
+def int8_qparams(model: net.Model, consts: net.ModelConsts, cfg: configs.TrainConfig,
+                 keep_sites: tuple = ()) -> dict:
+    """The CLIs' quantized encoder: `ptq_quantize` calibrated on 16 images
+    of `cfg`'s synthetic stream at seed 999, held out of every eval seed."""
+    calib = predict.synthetic_images(consts, cfg.model, 16, seed=999, synthetic_cfg=cfg.synthetic)
+    return quant.ptq_quantize(model.encoder, calib, keep_sites)
 
 
 def main(argv=None) -> int:
@@ -279,13 +314,14 @@ def main(argv=None) -> int:
                     "(the 3D metrics when it has gt_pose and gt_betas)")
     ap.add_argument("--image-dir", default=None,
                     help="score an image directory (images/, masks/, keypoints.npz): image-space metrics")
-    ap.add_argument("--int8", action="store_true")
-    ap.add_argument("--qparams", default=None)
-    ap.add_argument("--int8-impl", default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="score the int8 encoder, calibrated on a synthetic batch (seed 999)")
+    ap.add_argument("--qparams", default=None,
+                    help="a quantized encoder .npz (models/quantize.save_qparams); implies --int8")
+    ap.add_argument("--int8-impl", default="int8", choices=quant.IMPLS,
+                    help="'int8' per site (float32 between convs), 'int8c' carried int8; "
+                    "sim/simc their float32-sum twins")
     args = ap.parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag) not in (None, False):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet; it comes with {item}")
     if (args.step is not None or args.ema) and not args.checkpoint:
         ap.error("--step and --ema need --checkpoint")
     if args.dataset and args.image_dir:
@@ -304,17 +340,23 @@ def main(argv=None) -> int:
         cfg.model, asset=assets_lib.load_asset(), seed=cfg.seed, device=args.device,
         ema=args.ema, checkpoint_dir=args.checkpoint, step=args.step,
     )
+    qparams = None
+    if args.qparams:
+        qparams = quant.load_qparams(args.qparams)
+    elif args.int8:
+        qparams = int8_qparams(model, consts, cfg)
+    kw = dict(qparams=qparams, int8_impl=args.int8_impl)
     if args.image_dir:
         from indirect_learning_pose_shape_tpu_torch.data.image_dir import ImageDirDataset
 
         ds = ImageDirDataset(args.image_dir, cfg.batch_size, cfg.model.image_size,
                              num_parts=cfg.model.raster.num_parts, seed=cfg.seed)
-        metrics = evaluate_preprocessed(model, consts, cfg, ds, max_batches=args.batches or None)
+        metrics = evaluate_preprocessed(model, consts, cfg, ds, max_batches=args.batches or None, **kw)
     elif args.dataset:
         ds = dataset_lib.open_dataset(args.dataset, cfg.batch_size, seed=cfg.seed)
-        metrics = evaluate_dataset(model, consts, cfg, ds, max_batches=args.batches or None)
+        metrics = evaluate_dataset(model, consts, cfg, ds, max_batches=args.batches or None, **kw)
     else:
-        metrics = evaluate(model, consts, cfg, num_batches=args.batches)
+        metrics = evaluate(model, consts, cfg, num_batches=args.batches, **kw)
     print(json.dumps({k: round(v, 5) for k, v in metrics.items()}))
     return 0
 

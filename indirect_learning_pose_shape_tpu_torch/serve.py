@@ -5,9 +5,16 @@ bucket sizes, run, and sliced back. On the card this keeps the set of
 shapes cuDNN and the kernels see small and fixed, so `warmup` can pay every
 first-call cost (cuDNN algorithm choice, kernel build) before traffic.
 
-    predictor = Predictor(cfg, model, consts)
+    predictor = Predictor(cfg, model, consts)               # bf16 eval forward
+    predictor = Predictor(cfg, model, consts, qparams=qp)   # int8 encoder
     predictor.warmup()
     out = predictor(images)          # images [N, S, S, 3] float32 in [-1, 1]
+
+With `qparams` (models/quantize.py: `ptq_quantize` or `load_qparams`) the
+encoder is the quantized one, run by `int8_impl` ('int8c' by default, the
+reference's serving default; 'int8', 'sim', 'simc'), and the head is the
+model's IEF, SMPL and projection (`quantize.quantized_forward`). The
+qparams are moved to the card once, when the Predictor is built.
 
 The forward runs under `torch.inference_mode()`. The Predictor turns TF32
 off process-wide (`utils.precision.disable_tf32`): float32 products on the
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -36,6 +44,8 @@ class Predictor:
         model: net.Model,
         consts: net.ModelConsts,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
+        qparams: Optional[dict] = None,
+        int8_impl: str = "int8c",
     ):
         if not buckets or any(int(b) <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets!r}")
@@ -45,6 +55,12 @@ class Predictor:
         self.consts = consts
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.device = consts.smpl.v_template.device
+        if int8_impl not in quant.IMPLS:
+            raise ValueError(f"int8_impl must be one of {quant.IMPLS}, got {int8_impl!r}")
+        self.int8_impl = int8_impl
+        self.qenc = (
+            None if qparams is None else quant.as_encoder(qparams, cfg.encoder, self.device)
+        )
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -57,7 +73,11 @@ class Predictor:
 
     def _run(self, images: torch.Tensor) -> dict:
         with torch.inference_mode():
-            return net.forward(self.model, self.consts, images, self.cfg)
+            if self.qenc is None:
+                return net.forward(self.model, self.consts, images, self.cfg)
+            return quant.quantized_forward(
+                self.qenc, self.model.ief, self.consts, images, self.cfg, self.int8_impl
+            )
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every chosen bucket (all by default) once before traffic."""

@@ -1,12 +1,14 @@
 """Where a serving request's time goes on the card, per bucket.
 
     python -m indirect_learning_pose_shape_tpu_torch.tools.profile_serve \\
-        [--preset config4_full] [--buckets 1 4 8 32 128] [--out profile_serve.json]
+        [--preset config4_full] [--buckets 1 4 8 32 128] [--int8-impl int8c] \\
+        [--out profile_serve.json]
 
 Builds a `serve.Predictor` on the preset at full width with seed-0 weights
 (the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the bodies
-stay in frame and the raster kernel renders real silhouettes), warms every
-bucket up, and for each bucket sends requests of exactly that batch from
+stay in frame and the raster kernel renders real silhouettes), with
+`--int8-impl` its int8 encoder (models/quantize.py, calibrated on 16
+images of the preset's synthetic stream at seed 999), warms every bucket up, and for each bucket sends requests of exactly that batch from
 host numpy images, one at a time (closed loop, one client). A request is
 `Predictor.__call__` + `predict.render_silhouette`, ended by a synchronize.
 
@@ -146,6 +148,8 @@ def main(argv=None) -> int:
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 8, 32, 128])
     ap.add_argument("--timed", type=int, default=30)
     ap.add_argument("--profiled", type=int, default=10)
+    ap.add_argument("--int8-impl", default=None, choices=["int8", "int8c", "sim", "simc"],
+                    help="serve the int8 encoder under this impl (default: the bf16 encoder)")
     ap.add_argument("--out", default="profile_serve.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -156,15 +160,21 @@ def main(argv=None) -> int:
     from indirect_learning_pose_shape_tpu_torch.utils import assets
 
     smi = smi_line()
-    cfg = configs.PRESETS[args.preset].model
+    tcfg = configs.PRESETS[args.preset]
+    cfg = tcfg.model
     model, consts = predict.load_model(cfg, asset=assets.load_asset(), seed=0, device="cuda")
     with torch.no_grad():
         model.ief.layers[-1].weight.mul_(0.01)
-    p = serve.Predictor(cfg, model, consts)
+    qparams = None
+    if args.int8_impl:
+        from indirect_learning_pose_shape_tpu_torch import evaluate
+
+        qparams = evaluate.int8_qparams(model, consts, tcfg)
+    p = serve.Predictor(cfg, model, consts, qparams=qparams, int8_impl=args.int8_impl or "int8c")
     p.warmup(args.buckets)
     rng = np.random.RandomState(0)
     size = cfg.image_size
-    result = {"device": smi, "preset": args.preset, "buckets": {}}
+    result = {"device": smi, "preset": args.preset, "int8_impl": args.int8_impl, "buckets": {}}
     for b in args.buckets:
         images = rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32)
         result["buckets"][str(b)] = profile_bucket(

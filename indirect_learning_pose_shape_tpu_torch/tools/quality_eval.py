@@ -18,6 +18,11 @@ to one stream's reading:
     python -m indirect_learning_pose_shape_tpu_torch.tools.quality_eval \\
         --preset config4_robust --checkpoint D --eval-suite hardapp [--ema]
 
+With `--int8` the protocol scores the int8 encoder (models/quantize.py),
+calibrated on 16 images of the stream at seed 999, under `--int8-impl`
+('int8' by default; 'int8c', 'sim', 'simc'), with the sites matching
+`--keep-bf16` (names or prefixes, e.g. `stem s3`) kept in bf16.
+
 Each seed's metrics go to standard error. On the CPU (`--device cpu`) shrink
 the run with `--batch-size` and `--image-size`.
 """
@@ -33,13 +38,11 @@ import torch
 from indirect_learning_pose_shape_tpu_torch import configs, evaluate, predict
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 PROTOCOL_SEEDS = (123, 231, 312)
-
-# Reference flags that need an item not ported yet.
-_REFUSED = {"int8": configs.INT8, "keep_bf16": configs.INT8, "int8_impl": configs.INT8}
 
 
 def protocol(
@@ -48,10 +51,16 @@ def protocol(
     cfg: configs.TrainConfig,
     seeds=PROTOCOL_SEEDS,
     batches: int = 8,
+    qparams=None,
+    int8_impl: str = "int8",
 ) -> tuple[dict[int, dict[str, float]], dict[str, dict[str, float]]]:
     """(each seed's metrics, each metric's {"mean", "pm"} over the seeds,
-    `pm` half the range)."""
-    per_seed = {s: evaluate.evaluate(model, consts, cfg, num_batches=batches, seed=s) for s in seeds}
+    `pm` half the range); with `qparams`, of the int8 encoder."""
+    per_seed = {
+        s: evaluate.evaluate(model, consts, cfg, num_batches=batches, seed=s,
+                             qparams=qparams, int8_impl=int8_impl)
+        for s in seeds
+    }
     summary = {}
     for m in sorted(next(iter(per_seed.values()))):
         vals = [per_seed[s][m] for s in seeds]
@@ -78,13 +87,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--image-size", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    ap.add_argument("--int8", action="store_true")
-    ap.add_argument("--keep-bf16", nargs="*", default=None)
-    ap.add_argument("--int8-impl", default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="score the int8 encoder, calibrated on a synthetic batch (seed 999, 16 images)")
+    ap.add_argument("--int8-impl", default="int8", choices=quant.IMPLS,
+                    help="'int8' per site, 'int8c' carried int8 (sim/simc their float32-sum twins)")
+    ap.add_argument("--keep-bf16", nargs="*", default=[], metavar="SITE",
+                    help="with --int8: encoder sites (names or prefixes, e.g. stem s3) kept in bf16")
     args = ap.parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag) not in (None, False):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet; it comes with {item}")
+    if args.keep_bf16 and not args.int8:
+        ap.error("--keep-bf16 applies to --int8")
     if (args.step is not None or args.ema) and not args.checkpoint:
         ap.error("--step and --ema need --checkpoint")
     try:
@@ -100,7 +111,13 @@ def main(argv=None) -> int:
         cfg.model, asset=assets_lib.load_asset(), seed=cfg.seed, device=args.device,
         ema=args.ema, checkpoint_dir=args.checkpoint, step=args.step,
     )
-    per_seed, summary = protocol(model, consts, cfg, args.seeds, args.batches)
+    qparams = None
+    if args.int8:
+        try:
+            qparams = evaluate.int8_qparams(model, consts, cfg, tuple(args.keep_bf16))
+        except ValueError as e:
+            ap.error(str(e))
+    per_seed, summary = protocol(model, consts, cfg, args.seeds, args.batches, qparams, args.int8_impl)
     for seed, m in per_seed.items():
         print(f"seed {seed}: {json.dumps({k: round(v, 5) for k, v in m.items()})}", file=sys.stderr)
     print(json.dumps({
@@ -110,6 +127,9 @@ def main(argv=None) -> int:
         "seeds": args.seeds,
         "batches": args.batches,
         "batch_size": cfg.batch_size,
+        "int8": args.int8,
+        "int8_impl": args.int8_impl if args.int8 else None,
+        "keep_bf16": args.keep_bf16 or None,
         "ema": args.ema,
         "eval_suite": args.eval_suite,
         "synthetic": specs or None,

@@ -73,7 +73,9 @@ from indirect_learning_pose_shape_tpu_torch import configs, losses
 from indirect_learning_pose_shape_tpu_torch.data import augment, synthetic
 from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
 from indirect_learning_pose_shape_tpu_torch.data import preprocess as pp
+from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.models import pretrained
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
@@ -133,12 +135,20 @@ def init_state(
     cfg: configs.TrainConfig, asset=None, device: torch.device | str = "cuda"
 ) -> tuple[TrainState, net.ModelConsts]:
     """(state, consts) on `device`: the card unless the caller asks for the
-    CPU; raises without one. The model is initialised from `cfg.seed`."""
+    CPU; raises without one. The model is initialised from `cfg.seed`, then,
+    as the reference's `init_state`, IEF's Θ₀ is read from `cfg.mean_params`
+    (shape-checked against the IEF layout) and the encoder from
+    `cfg.pretrained` (refused for another depth or shape)."""
     device = device_lib.resolve(device)
     disable_tf32()
     if asset is None:
         asset = assets_lib.load_asset()
     model, consts = net.init(asset, cfg.model, seed=cfg.seed, device=device)
+    with torch.no_grad():
+        if cfg.mean_params:
+            model.ief.mean_theta.copy_(ief_mod.load_mean_theta(cfg.mean_params, cfg.model.ief))
+        if cfg.pretrained:
+            pretrained.load_encoder(model.encoder, cfg.pretrained)
     return new_state(model, cfg, cfg.seed), consts
 
 
@@ -607,6 +617,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ief-iters", type=int, default=None, help="IEF iterations (default 3)")
     ap.add_argument("--rot-format", default=None, choices=["axis_angle", "rot6d"],
                     help="pose rotation format; a checkpoint restores only under the format it trained with")
+    ap.add_argument("--pretrained", default=None,
+                    help="backbone npz from tools/import_resnet_weights.py")
+    ap.add_argument("--mean-params", default=None,
+                    help="IEF's initial Θ₀: an npz with 'mean_theta' or a .npy")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
@@ -634,7 +648,8 @@ def main(argv=None) -> int:
                         ("ema_decay", "ema_decay"), ("steps_per_call", "steps_per_call"),
                         ("log_every", "log_every"), ("seed", "seed"),
                         ("checkpoint_every", "checkpoint_every"), ("checkpoint_dir", "checkpoint_dir"),
-                        ("metrics", "metrics_path"), ("tensorboard", "tensorboard_dir")):
+                        ("metrics", "metrics_path"), ("tensorboard", "tensorboard_dir"),
+                        ("pretrained", "pretrained"), ("mean_params", "mean_params")):
         if getattr(args, flag) is not None:
             updates[field] = getattr(args, flag)
     if args.loss_weight:

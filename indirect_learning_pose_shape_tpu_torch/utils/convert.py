@@ -32,14 +32,24 @@ def _flatten(tree: dict, prefix: str, out: dict) -> None:
             out[key] = np.asarray(v)
 
 
+def encoder_to_state_dict(params: dict, state: dict) -> dict[str, np.ndarray]:
+    """The reference's encoder (params, state) subtrees -> `Encoder.state_dict()`
+    keys and layouts (numpy float32)."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    _flatten(state, "", flat)
+    return {
+        k: np.ascontiguousarray(v.transpose(_HWIO_TO_OIHW) if v.ndim == 4 else v, dtype=np.float32)
+        for k, v in flat.items()
+    }
+
+
 def jax_to_state_dict(params: dict, state: dict) -> dict[str, np.ndarray]:
     """Reference pytree -> the port's state_dict keys and layouts (numpy)."""
-    out: dict[str, np.ndarray] = {}
-    enc: dict[str, np.ndarray] = {}
-    _flatten(params["encoder"], "", enc)
-    _flatten(state["encoder"], "", enc)
-    for k, v in enc.items():
-        out[f"encoder.{k}"] = v.transpose(_HWIO_TO_OIHW) if v.ndim == 4 else v
+    out = {
+        f"encoder.{k}": v
+        for k, v in encoder_to_state_dict(params["encoder"], state["encoder"]).items()
+    }
     ief = params["ief"]
     for i, layer in enumerate(ief["layers"]):
         out[f"ief.layers.{i}.weight"] = np.asarray(layer["w"]).T

@@ -2,8 +2,8 @@
 reference's on the same numpy inputs, `_batch_metrics` against the
 reference's on the same batch (the reference's own batch injected, and the
 port's render of the reference's draws), `evaluate`'s determinism, and the
-CLI: a checkpoint, a step of it, its EMA and the hard suite, and the
-refusals.
+CLI: a checkpoint, a step of it, its EMA and the hard suite, and the int8
+flags scoring the quantized encoder.
 """
 
 import json
@@ -226,13 +226,31 @@ def test_cli_checkpoint_models_differ(run_dir):
         assert any(not torch.equal(p, params[b][k]) for k, p in params[a].items()), (a, b)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--int8"], "item 17"), (["--qparams", "q.npz"], "item 17"), (["--int8-impl", "int8c"], "item 17"),
+@pytest.mark.parametrize("flags, twin", [
+    (["--int8"], "sim"), (["--qparams", "q.npz"], "sim"), (["--int8", "--int8-impl", "int8c"], "simc"),
 ])
-def test_cli_refusals_name_their_item(flags, item, capsys):
-    with pytest.raises(SystemExit):
-        evaluate.main(["--device", "cpu", *flags])
-    assert item in capsys.readouterr().err
+def test_cli_refusals_name_their_item(flags, twin, tmp_path, capsys):
+    """The int8 flags, once refused, score the int8 encoder on the CPU: the
+    CLI prints `evaluate` of the quantized model (calibrated on the stream's
+    seed-999 batch, or the `--qparams` file) under its impl, and those
+    metrics equal the float32-sum twin's within 1e-3."""
+    from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+
+    cfg, _ = evaluate.eval_config(configs.CONFIG4_FULL, 1, 32)
+    model, consts = predict.load_model(cfg.model, seed=cfg.seed, device="cpu")
+    qparams = evaluate.int8_qparams(model, consts, cfg)
+    if flags[0] == "--qparams":
+        flags = ["--qparams", str(tmp_path / flags[1])]
+        quant.save_qparams(flags[1], qparams)
+    capsys.readouterr()
+    assert evaluate.main([*_SMALL, "--batches", "1", *flags]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    impl = flags[-1] if "--int8-impl" in flags else "int8"
+    want = evaluate.evaluate(model, consts, cfg, num_batches=1, qparams=qparams, int8_impl=impl)
+    assert got == {k: round(v, 5) for k, v in want.items()}
+    sim = evaluate.evaluate(model, consts, cfg, num_batches=1, qparams=qparams, int8_impl=twin)
+    for k, v in sim.items():
+        assert abs(got[k] - v) <= 1e-3, k
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """PyTorch port, the quality protocol (`tools/quality_eval.py`): the CLI on
 the CPU over 3 seeds × 1 batch on each suite, scoring a checkpoint's EMA;
 each seed's metrics are `evaluate`'s, the summary's mean and `pm` (half the
-range) are those of the seeds; and the refusals of the int8 flags.
+range) are those of the seeds; and the int8 flags (`--int8`,
+`--int8-impl`, `--keep-bf16`) scoring the quantized encoder.
 """
 
 import json
@@ -64,6 +65,26 @@ def test_suite_names_the_whole_stream(suite):
 
 @pytest.mark.parametrize("flags", [["--int8"], ["--keep-bf16", "s3"], ["--int8-impl", "int8c"]])
 def test_cli_refuses_int8(flags, capsys):
-    with pytest.raises(SystemExit):
-        quality_eval.main([*_SMALL, *flags])
-    assert "item 17" in capsys.readouterr().err
+    """The int8 flags, once refused, run the protocol on the int8 encoder
+    (with --int8; --keep-bf16 alone is refused): each seed's metrics are
+    `evaluate`'s with the same qparams, impl and kept sites."""
+    keep = tuple(flags[1:]) if flags[0] == "--keep-bf16" else ()
+    impl = flags[1] if flags[0] == "--int8-impl" else "int8"
+    if keep:
+        with pytest.raises(SystemExit):
+            quality_eval.main([*_SMALL, *flags])
+        assert "--keep-bf16 applies to --int8" in capsys.readouterr().err
+    argv = [*_SMALL, "--int8", *(flags if flags[0] != "--int8" else []), "--batches", "1", "--seeds", "231"]
+    capsys.readouterr()
+    assert quality_eval.main(argv) == 0
+    captured = capsys.readouterr()
+    out = json.loads(captured.out.strip().splitlines()[-1])
+    assert out["int8"] and out["int8_impl"] == impl and out["keep_bf16"] == (list(keep) or None)
+    cfg, _ = evaluate.eval_config(configs.CONFIG4_FULL, 1, 32)
+    model, consts = predict.load_model(cfg.model, seed=cfg.seed, device="cpu")
+    qparams = evaluate.int8_qparams(model, consts, cfg, keep)
+    assert {s for s, q in qparams.items() if "w_bf16" in q} == ({"s3b0/conv1", "s3b0/conv2", "s3b0/proj",
+                                                                  "s3b1/conv1", "s3b1/conv2"} if keep else set())
+    want = evaluate.evaluate(model, consts, cfg, num_batches=1, seed=231, qparams=qparams, int8_impl=impl)
+    per_seed = json.loads(re.search(r"^seed 231: (\{.*\})$", captured.err, re.M).group(1))
+    assert per_seed == {k: round(v, 5) for k, v in want.items()}

@@ -130,19 +130,24 @@ def test_load_model_from_npz(tiny_asset, reference, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules, serving, a training step on hard targets with
-    appearance randomisation and one on a written disk dataset with
-    augmentation, on the CPU, import neither jax nor the JAX package."""
+    """The port's modules, serving (float and int8), a training step on hard
+    targets with appearance randomisation and one on a written disk dataset
+    with augmentation, the int8 evaluation and the example's step, on the
+    CPU, import neither jax nor the JAX package (nor does importing the
+    export and the tools)."""
     code = (
         "import dataclasses, sys, torch\n"
-        "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train\n"
+        "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, export, losses, predict, serve, train\n"
         "from indirect_learning_pose_shape_tpu_torch.data import augment, dataset, image_dir, native_preprocess\n"
         "from indirect_learning_pose_shape_tpu_torch.data import preprocess, synthetic\n"
-        "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network\n"
+        "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network, pretrained, quantize\n"
+        "from indirect_learning_pose_shape_tpu_torch.examples import fit_to_silhouette\n"
         "from indirect_learning_pose_shape_tpu_torch.ops import raster, raster_hard\n"
         "from indirect_learning_pose_shape_tpu_torch.ops.kernels import lbs_cuda, raster_cuda\n"
         "from indirect_learning_pose_shape_tpu_torch.tools import make_synthetic_dataset, profile_serve\n"
         "from indirect_learning_pose_shape_tpu_torch.tools import profile_train, quality_eval, shard_dataset\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import convert_smpl_pkl, export_model\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import import_resnet_weights, profile_step\n"
         "from indirect_learning_pose_shape_tpu_torch.utils import checkpoint, debug, metrics\n"
         "from indirect_learning_pose_shape_tpu_torch.utils.assets import synthetic_asset\n"
         "cfg = network.ModelConfig(image_size=64,\n"
@@ -164,6 +169,12 @@ def test_port_imports_no_jax():
         "native_preprocess.crop_resize_normalize([arrays['images'][0]], [[32.0, 32.0, 40.0]], 16)\n"
         "m = evaluate.evaluate(model, consts, tcfg, num_batches=1)\n"
         "assert 0.0 <= m['sil_iou'] <= 1.0 and m['pve'] > 0\n"
+        "qp = quantize.ptq_quantize(model.encoder, torch.zeros(2, 64, 64, 3), keep_sites=('stem',))\n"
+        "out = serve.Predictor(cfg, model, consts, qparams=qp)(torch.zeros(2, 64, 64, 3))\n"
+        "assert out['verts'].shape == (2, 300, 3)\n"
+        "m = evaluate.evaluate(model, consts, tcfg, num_batches=1, qparams=qp)\n"
+        "prob = fit_to_silhouette.make_problem(asset, 32, 1, 'cpu')\n"
+        "fit_to_silhouette.fit(prob, fit_to_silhouette.initial_params(1, 'cpu'), 1, 0.05)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'indirect_learning_pose_shape_tpu' not in sys.modules\n"
     )

@@ -3,7 +3,8 @@ injected batch from converted initial parameters, against the JAX
 reference's `loss_and_metrics` + optax Adam (its `train_step`) with both
 Pallas alternatives selected (`smpl_impl`/`raster_impl='pallas'`, interpret
 mode). Width-16 f32 encoder, tiny asset, 128² (at 64² the reference's raster
-kernel would fall back to its XLA path). Also the configuration refusals,
+kernel would fall back to its XLA path). Also the configuration refusals
+(and the pretrained and mean-parameter files, taken),
 the step-seeded stream, the CLI and the CUDA-by-default entry points.
 """
 
@@ -141,9 +142,39 @@ def test_train_loss_over_steps_matches_jax(runs):
     ("pretrained", "enc18.npz"), ("mean_params", "mean.npz"),
     ("render_devices", 2), ("num_devices", 4),
 ])
-def test_unported_train_fields_are_refused(field, value):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item"):
-        dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+def test_unported_train_fields_are_refused(field, value, tmp_path, monkeypatch):
+    """The multi-GPU fields are refused, naming their ROADMAP item.
+    `pretrained` and `mean_params` are taken: `train.main --pretrained` /
+    `--mean-params` (one step on the CPU) starts from the file's weights."""
+    if field in ("render_devices", "num_devices"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 16"):
+            dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+        return
+    from indirect_learning_pose_shape_tpu_torch.models import pretrained
+    from tests.test_torch_pretrained import _torchvision_sd
+
+    path = str(tmp_path / value)
+    if field == "pretrained":
+        pretrained.save_encoder_npz(path, *pretrained.map_state_dict(_torchvision_sd(seed=3), 18), 18)
+        want = {"encoder." + k: v for k, v in convert.encoder_to_state_dict(
+            *pretrained.load_encoder_npz(path)[:2]).items()}
+    else:
+        want = {"ief.mean_theta": np.random.RandomState(3).randn(85).astype(np.float32)}
+        np.savez(path, mean_theta=want["ief.mean_theta"])
+    started = {}
+    new_state = train.new_state
+
+    def recording(model, *args):
+        started.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+        return new_state(model, *args)
+
+    monkeypatch.setattr(train, "new_state", recording)
+    flag = "--" + field.replace("_", "-")
+    assert train.main(["--preset", "config4_full", "--batch-size", "1", "--image-size", "32",
+                       "--steps", "1", "--device", "cpu", flag, path]) == 0
+    assert set(want) <= set(started)
+    for k, v in want.items():
+        np.testing.assert_array_equal(started[k].numpy(), v, err_msg=k)
 
 
 def test_checkpoint_fields_are_taken():
