@@ -112,14 +112,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
    LBS, raster forward and raster backward launch a step; a profiled
    window); `train.init_state` from a pretrained npz and a mean-parameter
    file written in the phase.
+11. Multi-GPU training on the one card (`parallel_phase`, last):
+   config5_data_parallel (ResNet-18, global batch 64, 256²). NCCL at world
+   size 1 in this process: step 1 through the mesh against the no-mesh
+   step (rtol 1e-6; it reads bitwise), 3 steps each way in turns (host
+   wall, the mesh's cost), the gradient all-reduce timed, 2/2/1 launches a
+   step. Then PAR_RANKS gloo ranks sharing the card (`mesh.spawn`; the
+   parent built the kernels): step 1 on a rank's rows against one process
+   on the global batch (float32 encoder: terms 1e-5, the whole gradient
+   1e-4, each leaf within FLOOR_MULTIPLE x the reduction-order floor of one
+   process on the batch with its halves swapped, BN buffers 1e-5, the
+   update bitwise; bf16: BF16_TOL), the kernels against their plain
+   versions on the rank's path, counted DP steps (2/2/1 launches a rank a
+   step, host wall, all-reduce bytes and ms), a 1 x PAR_RANKS render mesh
+   (separable rows and vertex gradient vs local, the SP step's loss vs the
+   one-process separable step within SP_LOSS_TOL, 2/0/0 launches, the hard
+   raster in tile bands equal to dense, LBS vs plain); then
+   `torchrun --nproc_per_node 1 -m ...train --preset config5_data_parallel`.
+   Times of ranks sharing one card are no multi-GPU rate.
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
 training main path, on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
-requests and their evaluation (`launches_int8`) and in the example
-(`launches_fit`), its
+requests and their evaluation (`launches_int8`), in the example
+(`launches_fit`) and on the parallel phase's counted steps per rank
+(`launches_parallel_nccl`, `_dp`, `_sp`), its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -138,12 +157,14 @@ import json
 import os
 import statistics
 import struct
+import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train
 from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
@@ -152,6 +173,8 @@ from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
+from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
+from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.tools import quality_eval
 from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import device_summary, smi_line
 from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms, events_ms
@@ -2010,6 +2033,378 @@ def int8_phase(cfg, model, consts, asset, smi) -> dict:
     return {"launches": launches, "fit_launches": fit_launches}
 
 
+# The parallel phase: config5_data_parallel (ResNet-18, global batch 64,
+# 256²) through the port's mesh code. The machine has one card, so NCCL runs
+# at world size 1 (in this process), and the multi-rank paths run as
+# PAR_RANKS gloo ranks that share the card: their step times are no
+# multi-GPU rate. PAR_STEPS counted steps each, after one warm-up.
+PAR_RANKS = 2
+PAR_STEPS = 3
+PAR_RENDER_IMAGES = 8  # images of the row-sharded render checks
+PAR_HARD_IMAGES = 4  # images of the hard raster's band check
+PER_STEP_SP = {lbs_cuda.KERNEL: 2}  # SP renders on the separable route: no raster kernel
+SP_LOSS_TOL = 2e-3  # the reference's limit, SP loss vs the 1-D loss
+# The rank's step against one process with the bf16 encoder: loss terms, the
+# gradients' global error and the BN buffers within a few units of bf16
+# roundoff (2^-8 = 3.9e-3). An ulp of a float32 BN statistic (the mean of
+# the ranks' means is not the mean of the batch to the last bit) can flip
+# the bf16 rounding of a channel's scale, so the bf16 step is held no closer
+# than that; the float32 step is held to the reduction-order floor.
+BF16_TOL = 1e-2
+
+
+def step1(model, consts, batch, cfg, mesh=None) -> tuple[dict, dict, dict]:
+    """Step 1's loss terms, gradients (summed over the mesh under one) and BN
+    buffers from `model` on `batch`; the model's buffers move."""
+    model.zero_grad(set_to_none=True)
+    total, terms = train.loss_and_metrics(model, consts, batch, cfg, mesh)
+    total.backward()
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(model.parameters(), mesh)
+    return (
+        {k: float(v.detach()) for k, v in terms.items()},
+        {k: p.grad for k, p in model.named_parameters()},
+        {k: b.clone() for k, b in model.named_buffers()},
+    )
+
+
+def term_err(got: dict, want: dict) -> float:
+    check(set(got) == set(want), f"loss terms differ: {sorted(got)} vs {sorted(want)}")
+    return max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items())
+
+
+def leaf_errs(got: dict, want: dict) -> tuple[float, float]:
+    """Max normalised gradient error over (IEF and mean_theta, encoder) leaves."""
+    errs = {k: norm_err(got[k], g) for k, g in want.items()}
+    return (max(e for k, e in errs.items() if not k.startswith("encoder.")),
+            max(e for k, e in errs.items() if k.startswith("encoder.")))
+
+
+def global_err(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every leaf at once (the clip's global norm)."""
+    d = torch.sqrt(sum(torch.sum((got[k] - g).double() ** 2) for k, g in want.items()))
+    return float(d / torch.sqrt(sum(torch.sum(g.double() ** 2) for g in want.values())))
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    head, enc = leaf_errs(got, want)
+    return {"head": head, "encoder": enc, "global": global_err(got, want)}
+
+
+def scaled_state(cfg, asset, device):
+    ts, consts = train.init_state(cfg, asset, device)
+    with torch.no_grad():  # keep the seed-0 bodies in frame (see main)
+        ts.model.ief.layers[-1].weight.mul_(0.01)
+    return train.new_state(ts.model, cfg, cfg.seed), consts
+
+
+def timed_steps(ts, consts, cfg, mesh, n: int) -> list[float]:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        train.fused_step(ts, consts, cfg, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+@contextlib.contextmanager
+def timed_grad_reduce(record: list):
+    """Inside the block each gradient all-reduce of a step appends (bytes,
+    host ms between synchronizes) to `record`."""
+    plain = mesh_lib.all_reduce_grads
+
+    def timed(params, m, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = plain(params, m, *args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((n, (time.perf_counter() - t0) * 1e3))
+        return n
+
+    mesh_lib.all_reduce_grads = timed
+    try:
+        yield
+    finally:
+        mesh_lib.all_reduce_grads = plain
+
+
+def reduce_stats(record: list) -> dict:
+    return {"reduce_bytes": record[-1][0], "reduce_ms": statistics.median(r[1] for r in record)}
+
+
+def nccl_world1(asset, smi) -> dict:
+    """NCCL at world size 1, in this process: step 1 of config5_data_parallel
+    through the mesh (every collective runs) against the no-mesh step from
+    the same state and seed (rtol 1e-6; bitwise where the order is the
+    same), then PAR_STEPS steps each way, in turns, host wall per step."""
+    cfg = configs.CONFIG5_DATA_PARALLEL
+    B = cfg.batch_size
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(None, "cuda")
+            check(mesh.world == 1 and mesh.backend == "nccl", f"NCCL mesh: {mesh}")
+            ts, consts = scaled_state(cfg, asset, "cuda")
+            init_model = copy.deepcopy(ts.model)
+            batch = train.make_batch(cfg.seed, 0, B, consts, cfg)
+            mbatch = train.make_batch(cfg.seed, 0, B, consts, cfg, mesh)
+            check(all(torch.equal(mbatch[k], v) for k, v in batch.items()), "NCCL world 1: the mesh's batch differs")
+            tp, gp, bp = step1(copy.deepcopy(init_model), consts, batch, cfg)
+            tm, gm, bm = step1(copy.deepcopy(init_model), consts, mbatch, cfg, mesh)
+            t_err = term_err(tm, tp)
+            g_err = max(leaf_errs(gm, gp))
+            b_err = max(max_err(bm[k], v) for k, v in bp.items())
+            bitwise = all(torch.equal(gm[k], g) for k, g in gp.items()) and t_err == 0.0
+            check(t_err <= 1e-6 and g_err <= 1e-6 and b_err <= 1e-6,
+                  f"NCCL world 1 vs no mesh: terms {t_err}, gradients {g_err}, BN buffers {b_err}")
+
+            runs = {"plain": [], "mesh": []}
+            states = {k: train.new_state(copy.deepcopy(init_model), cfg, cfg.seed) for k in runs}
+            for k in runs:  # one warm-up step each
+                timed_steps(states[k], consts, cfg, mesh if k == "mesh" else None, 1)
+            launches, record = {}, []
+            for k in ("plain", "mesh", "mesh", "plain"):
+                _build.reset_counts()
+                runs[k] += timed_steps(states[k], consts, cfg, mesh if k == "mesh" else None, PAR_STEPS)
+                if k == "mesh":
+                    launches = _build.counts()
+            with timed_grad_reduce(record):  # apart: its synchronizes would stretch the steps above
+                timed_steps(states["mesh"], consts, cfg, mesh, PAR_STEPS)
+            stats = reduce_stats(record)
+            for name, per in PER_STEP.items():
+                check(launches.get(name, 0) == per * PAR_STEPS,
+                      f"NCCL world 1: kernel {name} launched {launches.get(name, 0)} times in {PAR_STEPS} steps")
+            ms = {k: statistics.median(v) for k, v in runs.items()}
+            print(
+                f"[parallel] NCCL world 1, config5_data_parallel B={B}: step 1 through the mesh vs no mesh: "
+                f"terms rel err {t_err:.3e}, gradients {g_err:.3e} normalised, BN buffers {b_err:.3e}"
+                f"{' (bitwise equal)' if bitwise else ''}; host wall per step (median of {2 * PAR_STEPS}, "
+                f"in turns): no mesh {ms['plain']:.3f} ms, mesh {ms['mesh']:.3f} ms (DP machinery "
+                f"{ms['mesh'] - ms['plain']:+.3f} ms); the gradient all-reduce {stats['reduce_bytes'] / 1e6:.3f} "
+                f"MB in {stats['reduce_ms']:.3f} ms (between synchronizes, {PAR_STEPS} more steps); "
+                f"launches in {PAR_STEPS} mesh steps {launches} [{smi}]"
+            )
+        finally:
+            dist.destroy_process_group()
+    return {"launches": launches, "ms": ms, "bitwise": bitwise}
+
+
+def parallel_rank(device) -> dict:
+    """One of PAR_RANKS gloo ranks on the card: the data-parallel step on its
+    rows against the one-process step on the global batch, the kernels
+    against their plain versions, counted steps with the all-reduce timed,
+    then the 1 x PAR_RANKS render mesh. Returns numbers; raises on a check."""
+    disable_tf32()
+    asset = assets.load_asset()
+    cfg = configs.CONFIG5_DATA_PARALLEL
+    B = cfg.batch_size
+    mesh = mesh_lib.make_mesh(None, device)
+    out = {"rank": mesh.rank}
+    ts, consts = scaled_state(cfg, asset, device)
+    init_model = copy.deepcopy(ts.model)
+    glob = train.make_batch(cfg.seed, 0, B, consts, cfg)
+    local = mesh_lib.shard_batch(glob, mesh)
+    mine = train.make_batch(cfg.seed, 0, B, consts, cfg, mesh)
+    out["batch_err"] = max(max_err(mine[k].float(), v.float()) for k, v in local.items())
+
+    # Step 1 on this rank's rows vs one process on the global batch, and the
+    # floor of float32 reduction order: one process on the global batch with
+    # its halves swapped (the same function, summed in another order).
+    enc32 = dataclasses.replace(cfg.model.encoder, compute_dtype=torch.float32)
+    swap = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)]).to(device)
+    swapped = {k: v[swap] if v.ndim else v for k, v in glob.items()}
+    for label, enc_cfg in (("f32", enc32), ("bf16", cfg.model.encoder)):
+        m1, mm, ms = copy.deepcopy(init_model), copy.deepcopy(init_model), copy.deepcopy(init_model)
+        m1.encoder.cfg = mm.encoder.cfg = ms.encoder.cfg = enc_cfg
+        t1, g1, b1 = step1(m1, consts, glob, cfg)
+        tm, gm, bm = step1(mm, consts, local, cfg, mesh)
+        ts_, gs, _ = step1(ms, consts, swapped, cfg)
+        out[label] = {"terms": term_err(tm, t1), "bn": max(max_err(bm[k], v) for k, v in b1.items()),
+                      **grad_errs(gm, g1), "order": {"terms": term_err(ts_, t1), **grad_errs(gs, g1)}}
+        if label == "f32":
+            # The update of the summed gradients is the one-process update of them.
+            grads = {k: g.clone() for k, g in gm.items()}
+            sm = train.new_state(mm, cfg, cfg.seed)
+            train.apply_update(sm, cfg)
+            mu = copy.deepcopy(init_model)
+            for k, p in mu.named_parameters():
+                p.grad = grads[k]
+            su = train.new_state(mu, cfg, cfg.seed)
+            train.apply_update(su, cfg)
+            out["update_bitwise"] = all(
+                torch.equal(p, dict(mm.named_parameters())[k]) for k, p in mu.named_parameters()
+            )
+            # The kernels against their plain versions on this rank's path.
+            cfg_t = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, smpl_impl="torch", raster_impl="torch")
+            )
+            mt = copy.deepcopy(init_model)
+            mt.encoder.cfg = enc32
+            with culled_plain_raster():
+                tt, gt, _ = step1(mt, consts, local, cfg_t, mesh)
+            out["plain"] = {"terms": term_err(tm, tt), **grad_errs(gm, gt)}
+        else:
+            floor = 0.0
+            for seed in JITTER_SEEDS:
+                mj = copy.deepcopy(init_model)
+                mj.encoder.cfg = enc_cfg
+                with jittered_render(JITTER, seed):
+                    _, gj, _ = step1(mj, consts, glob, cfg)
+                floor = max(floor, leaf_errs(gj, g1)[1])
+            out[label]["floor"] = floor
+
+    # Counted data-parallel steps, the gradient all-reduce timed.
+    st = train.new_state(copy.deepcopy(init_model), cfg, cfg.seed)
+    timed_steps(st, consts, cfg, mesh, 1)
+    _build.reset_counts()
+    times = timed_steps(st, consts, cfg, mesh, PAR_STEPS)
+    launches, record = _build.counts(), []
+    with timed_grad_reduce(record):  # apart: its synchronizes would stretch the steps above
+        timed_steps(st, consts, cfg, mesh, PAR_STEPS)
+    out["dp"] = {"launches": launches, "ms": statistics.median(times), **reduce_stats(record)}
+
+    # The 1 x PAR_RANKS render mesh: each rank renders a band of rows.
+    mesh2 = render_sp.render_mesh(1, PAR_RANKS, device)
+    rows = render_sp.constrainer(mesh2)
+    layout, S = consts.part_layout, cfg.model.image_size
+    n = PAR_RENDER_IMAGES
+    sm_out = smpl.smpl_forward(consts.smpl, glob["gt_pose"][:n], glob["gt_betas"][:n])
+    v2 = camera.project_pixel(sm_out["verts"], glob["gt_cam"][:n], S)
+    rcfg = dataclasses.replace(cfg.model.raster, matmul_precision="highest")
+    band = rows.band(S)
+    sp = render_sp.rasterize_spatial(v2, layout, rcfg, mesh2)
+    v_req = v2.detach().clone().requires_grad_(True)
+    ref = raster.soft_rasterize(v_req, layout, rcfg, impl="separable")
+    loss = losses.silhouette_bce(ref["silhouette"], glob["silhouette"][:n])
+    (grad,) = torch.autograd.grad(loss, v_req)
+    sp_loss, sp_grad = render_sp.spatial_render_loss_grad(v2, glob["silhouette"][:n], layout, rcfg, mesh2)
+    out["sp_render"] = {
+        "fwd": max(max_err(sp[k], ref[k][:, band].detach()) for k in ("probs", "silhouette")),
+        "loss": abs(float(sp_loss) - float(loss.detach())) / abs(float(loss.detach())),
+        "grad_abs": max_err(sp_grad, grad), "grad": norm_err(sp_grad, grad),
+    }
+    # The SP train step against the one-process step on the separable route.
+    sp_cfg = dataclasses.replace(cfg, render_devices=PAR_RANKS)
+    sep_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, raster_impl="separable"))
+    s1 = train.new_state(copy.deepcopy(init_model), sep_cfg, cfg.seed)
+    one_loss = float(train.fused_step(s1, consts, sep_cfg)["total"])
+    ssp = train.new_state(copy.deepcopy(init_model), sp_cfg, cfg.seed)
+    sp_mesh = train._auto_mesh(sp_cfg, device)
+    check(sp_mesh.n_render == PAR_RANKS and sp_mesh.n_data == 1, f"SP mesh {sp_mesh}")
+    step_loss = float(train.fused_step(ssp, consts, sp_cfg, sp_mesh)["total"])
+    _build.reset_counts()
+    times = timed_steps(ssp, consts, sp_cfg, sp_mesh, PAR_STEPS)
+    launches, record = _build.counts(), []
+    with timed_grad_reduce(record):
+        timed_steps(ssp, consts, sp_cfg, sp_mesh, PAR_STEPS)
+    out["sp"] = {"loss": step_loss, "one_loss": one_loss, "launches": launches,
+                 "ms": statistics.median(times), **reduce_stats(record)}
+    # The hard raster in tile bands, and the LBS kernel on this path.
+    h = PAR_HARD_IMAGES
+    dense = raster_hard.hard_raster(v2[:h], sm_out["verts"][:h, :, 2], consts.hard, S, with_shade=True)
+    banded = raster_hard.hard_raster(v2[:h], sm_out["verts"][:h, :, 2], consts.hard, S, with_shade=True, rows=rows)
+    out["hard_equal"] = all(torch.equal(banded[k], dense[k][:, band]) for k in ("part_labels", "silhouette", "shade"))
+    out["hard_fg"] = float(dense["silhouette"].mean())
+    kern = smpl.smpl_forward(consts.smpl, mine["gt_pose"], mine["gt_betas"], impl="kernel")
+    plain = smpl.smpl_forward(consts.smpl, mine["gt_pose"], mine["gt_betas"], impl="torch")
+    out["lbs_err"] = max(max_err(kern[k], plain[k]) for k in ("verts", "joints"))
+    return out
+
+
+def torchrun_cli(extra: tuple = ()) -> list[dict]:
+    """`torchrun --standalone --nproc_per_node 1 -m ...train --preset
+    config5_data_parallel --steps 2`: `train.main` joins the NCCL group that
+    torchrun describes (one card here, so one rank); returns its logged
+    JSON lines."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "indirect_learning_pose_shape_tpu_torch.train", "--preset", "config5_data_parallel",
+           "--steps", "2", "--log-every", "1", *extra]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"torchrun train failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+
+
+def parallel_phase(asset, smi) -> dict:
+    """NCCL at world size 1, then PAR_RANKS gloo ranks sharing the card
+    (`parallel_rank`), then the training CLI under torchrun; checks and
+    prints what they return."""
+    t_phase = time.perf_counter()
+    nccl = nccl_world1(asset, smi)
+    torch.cuda.empty_cache()
+    ranks = mesh_lib.spawn(parallel_rank, PAR_RANKS, backend="gloo", device="cuda", timeout=600)
+    cfg = configs.CONFIG5_DATA_PARALLEL
+    for r in ranks:
+        tag = f"[parallel] gloo rank {r['rank']} of {PAR_RANKS} on one card"
+        f32, bf = r["f32"], r["bf16"]
+        check(f32["terms"] <= 1e-5, f"{tag}: float32 encoder, loss terms rel err {f32['terms']} vs one process")
+        check(f32["global"] <= 1e-4, f"{tag}: float32 encoder, gradients' global error {f32}")
+        for k in ("head", "encoder"):
+            check(f32[k] <= FLOOR_MULTIPLE * f32["order"][k],
+                  f"{tag}: float32 encoder, {k} gradients {f32[k]} > {FLOOR_MULTIPLE} x the reduction-order "
+                  f"floor {f32['order'][k]}")
+        check(f32["bn"] <= 1e-5, f"{tag}: BN running buffers err {f32['bn']}")
+        check(r["update_bitwise"], f"{tag}: the update of the summed gradients is not the one-process update")
+        check(max(bf["terms"], bf["global"], bf["bn"]) <= BF16_TOL, f"{tag}: bf16 step vs one process {bf}")
+        pl = r["plain"]
+        check(pl["terms"] <= 1e-4 and pl["head"] <= 1e-3 and pl["encoder"] <= 1e-3,
+              f"{tag}: kernels vs plain versions (culled plain raster) on the rank's path: {pl}")
+        for name, per in PER_STEP.items():
+            got = r["dp"]["launches"].get(name, 0)
+            check(got == per * PAR_STEPS, f"{tag}: kernel {name} launched {got} times in {PAR_STEPS} DP steps")
+        sr = r["sp_render"]
+        check(sr["fwd"] <= 1e-5 and sr["grad"] <= 1e-5 and sr["loss"] <= 1e-6,
+              f"{tag}: row-sharded render vs local {sr}")
+        sp = r["sp"]
+        sp_err = abs(sp["loss"] - sp["one_loss"]) / abs(sp["one_loss"])
+        check(sp_err <= SP_LOSS_TOL, f"{tag}: SP step loss {sp['loss']} vs one process {sp['one_loss']}")
+        check(sp["launches"] == {k: v * PAR_STEPS for k, v in PER_STEP_SP.items()},
+              f"{tag}: SP launches {sp['launches']}, expected {PER_STEP_SP} per step")
+        check(r["hard_equal"] and r["hard_fg"] > 0.01, f"{tag}: hard raster bands vs dense (fg {r['hard_fg']})")
+        check(r["lbs_err"] <= TOL, f"{tag}: LBS kernel vs plain on the SP path {r['lbs_err']}")
+        print(
+            f"{tag}, config5_data_parallel B={cfg.batch_size} ({cfg.batch_size // PAR_RANKS} a rank): its batch "
+            f"vs the global batch's rows max abs {r['batch_err']:.3e}; step 1 vs one process on the global "
+            f"batch (gradients: global, then normalised per leaf, IEF / encoder; reduction-order floor = one "
+            f"process on the batch with its halves swapped): float32 encoder terms {f32['terms']:.3e} (floor "
+            f"{f32['order']['terms']:.3e}), gradients {f32['global']:.3e}, {f32['head']:.3e} / {f32['encoder']:.3e} "
+            f"(floor {f32['order']['global']:.3e}, {f32['order']['head']:.3e} / {f32['order']['encoder']:.3e}), BN "
+            f"buffers {f32['bn']:.3e}, update bitwise; bf16 terms {bf['terms']:.3e} (floor "
+            f"{bf['order']['terms']:.3e}), gradients {bf['global']:.3e}, {bf['head']:.3e} / {bf['encoder']:.3e} "
+            f"(floor {bf['order']['global']:.3e}, {bf['order']['head']:.3e} / {bf['order']['encoder']:.3e}; "
+            f"jittered-vertices floor of the encoder {bf['floor']:.3e}), BN buffers {bf['bn']:.3e}; kernels "
+            f"vs plain versions on its path: terms {pl['terms']:.3e}, gradients {pl['global']:.3e}, "
+            f"{pl['head']:.3e} / {pl['encoder']:.3e}"
+        )
+        print(
+            f"{tag}: {PAR_STEPS} DP steps, host wall {r['dp']['ms']:.3f} ms/step (ranks share the card: no "
+            f"multi-GPU rate), launches {r['dp']['launches']}; gradient all-reduce "
+            f"{r['dp']['reduce_bytes'] / 1e6:.3f} MB in {r['dp']['reduce_ms']:.3f} ms a step (gloo through the "
+            f"host; between synchronizes, {PAR_STEPS} more steps) [{smi}]"
+        )
+        print(
+            f"{tag}: 1x{PAR_RANKS} render mesh: separable render rows vs local max abs {sr['fwd']:.3e}, loss "
+            f"{sr['loss']:.3e}, vertex gradient {sr['grad']:.3e} normalised ({sr['grad_abs']:.3e} abs); SP step "
+            f"loss {sp['loss']:.6f} vs one process {sp['one_loss']:.6f} (rel {sp_err:.3e}, limit {SP_LOSS_TOL}); "
+            f"SP host wall {sp['ms']:.3f} ms/step (gradient all-reduce {sp['reduce_bytes'] / 1e6:.3f} MB in "
+            f"{sp['reduce_ms']:.3f} ms), launches {sp['launches']}; hard raster at "
+            f"{cfg.model.image_size}² in "
+            f"{PAR_RANKS} tile bands equal to dense; LBS kernel vs plain {r['lbs_err']:.3e} [{smi}]"
+        )
+    t0 = time.perf_counter()
+    logged = torchrun_cli()
+    check([rec["step"] for rec in logged] == [0, 1] and all(np.isfinite(rec["total"]) for rec in logged),
+          f"torchrun train: logged {logged}")
+    print(f"[parallel] torchrun --nproc_per_node 1 -m ...train --preset config5_data_parallel --steps 2: "
+          f"losses {[round(rec['total'], 6) for rec in logged]} in {time.perf_counter() - t0:.1f} s (NCCL group "
+          f"from torchrun's environment; one rank trains with no mesh, as the reference on one device)")
+    print(f"[parallel] phase in {time.perf_counter() - t_phase:.1f} s")
+    r0 = ranks[0]
+    return {"nccl": nccl["launches"], "dp": r0["dp"]["launches"], "sp": r0["sp"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2050,6 +2445,7 @@ def main() -> int:
     robust = robust_phase(asset, smi)
     disk = disk_phase(asset, smi)
     int8 = int8_phase(cfg, model, consts, asset, smi)
+    par = parallel_phase(asset, smi)
 
     def entry(name, source, replaces, **numbers):
         return dict(
@@ -2065,6 +2461,9 @@ def main() -> int:
             launches_dataset=disk["dataset_launches"].get(name, 0),
             launches_int8=int8["launches"].get(name, 0),
             launches_fit=int8["fit_launches"].get(name, 0),
+            launches_parallel_nccl=par["nccl"].get(name, 0),
+            launches_parallel_dp=par["dp"].get(name, 0),
+            launches_parallel_sp=par["sp"].get(name, 0),
             **{"library_ms": None, **numbers},
         )
 

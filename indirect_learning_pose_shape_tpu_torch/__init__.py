@@ -30,8 +30,10 @@ the synthetic stream with the 3-seed quality protocol
 on-device crop/resize with mirror and crop-jitter augmentation, prefetch to
 the card (``train.fit_dataset``, ``evaluate.evaluate_dataset``) and image
 directories through the native host preprocessor
-(``train.fit_preprocessed``). Entry points run on CUDA unless the caller
-asks for the CPU.
+(``train.fit_preprocessed``); and training on several GPUs
+(``parallel/``: data-parallel and row-sharded rendering over a
+``torch.distributed`` mesh, ``config5_data_parallel``, ``entry.py``). Entry
+points run on CUDA unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

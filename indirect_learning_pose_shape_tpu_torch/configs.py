@@ -11,13 +11,13 @@ honours are `model`, `synthetic`, `batch_size`, `learning_rate`,
 `ema_decay`, `checkpoint_every`, `checkpoint_dir`, `metrics_path`,
 `tensorboard_dir`, `augment` (mirror and crop jitter on disk data,
 data/augment.py), `pretrained` (a backbone npz of
-`tools/import_resnet_weights.py`) and `mean_params` (IEF's Θ₀ from a file);
-train.py says how each acts. `num_devices` and `render_devices` exist only
-so that a non-default value is refused with the ROADMAP item that brings
-it, never ignored.
+`tools/import_resnet_weights.py`), `mean_params` (IEF's Θ₀ from a file),
+`num_devices` (the data-parallel ranks; None = every launched rank) and
+`render_devices` (ranks that share each image's rows, `parallel/render_sp.py`;
+the mesh is then num_devices / render_devices by render_devices);
+train.py says how each acts.
 
-10 of the reference's 11 presets are here; `config5_data_parallel` waits
-for item 16 (multi-GPU).
+Every preset of the reference is here.
 """
 
 from __future__ import annotations
@@ -30,16 +30,6 @@ from indirect_learning_pose_shape_tpu_torch.models.encoder import EncoderConfig
 from indirect_learning_pose_shape_tpu_torch.models.ief import IEFConfig
 from indirect_learning_pose_shape_tpu_torch.models.network import ModelConfig
 from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
-
-# The ROADMAP items that bring what this port refuses.
-MULTI_GPU = "ROADMAP.md, Queue 1 item 16 (multi-GPU)"
-
-# Field -> (the only value this port takes, the ROADMAP item that brings others).
-_NOT_YET = {
-    "num_devices": (None, MULTI_GPU),
-    "render_devices": (1, MULTI_GPU),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -75,9 +65,8 @@ class TrainConfig:
     augment: AugmentConfig = AugmentConfig()  # disk-data mirror + crop jitter
     pretrained: str | None = None  # backbone npz (models/pretrained.py)
     mean_params: str | None = None  # IEF's Θ₀: npz 'mean_theta' or .npy
-    # Refused unless at these defaults (see _NOT_YET).
-    num_devices: int | None = None
-    render_devices: int = 1
+    num_devices: int | None = None  # data-parallel ranks; None = all launched
+    render_devices: int = 1  # ranks sharing each image's rows; 1 = off
 
     def __post_init__(self):
         if self.lr_schedule not in ("constant", "cosine"):
@@ -88,12 +77,16 @@ class TrainConfig:
             raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
         if self.checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
-        for name, (default, later) in _NOT_YET.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {default!r}); it comes with {later}"
-                )
+        if self.num_devices is not None and self.num_devices < 1:
+            raise ValueError(f"num_devices must be None or >= 1, got {self.num_devices}")
+        if self.render_devices < 1:
+            raise ValueError(f"render_devices must be >= 1, got {self.render_devices}")
+        if self.render_devices > 1 and self.model.raster_impl in ("kernel", "torch"):
+            raise ValueError(
+                f"render_devices={self.render_devices} row-shards the separable raster, and "
+                f"raster_impl={self.model.raster_impl!r} is another route: the reference's "
+                "kernel route is never row-sharded (use 'auto' or 'separable')"
+            )
 
     @property
     def loss_weight_dict(self) -> dict[str, float]:
@@ -148,6 +141,10 @@ CONFIG4_PARTS31 = TrainConfig(
     augment=AugmentConfig(part_convention="s31-smpl-prefix"),
 )
 
+# Data-parallel training over every launched rank (reference
+# CONFIG5_DATA_PARALLEL): the flagship model at a global batch of 64.
+CONFIG5_DATA_PARALLEL = TrainConfig(model=_model(256), batch_size=64, num_devices=None)
+
 # The reference's best recipe (CONFIG4_MIXED): ResNet-34 + rot6d, cosine
 # warm-up, clipping, and the indirect losses plus direct 3D supervision
 # (the synthetic stream emits its 3D ground truth); direct betas replace
@@ -199,4 +196,5 @@ PRESETS = {
     "config4_mixed": CONFIG4_MIXED,
     "config4_robust": CONFIG4_ROBUST,
     "config4_parts31": CONFIG4_PARTS31,
+    "config5_data_parallel": CONFIG5_DATA_PARALLEL,
 }

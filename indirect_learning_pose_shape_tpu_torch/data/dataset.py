@@ -244,6 +244,7 @@ def prefetch_to_device(
     size: int = 2,
     device: torch.device | str = "cuda",
     stats: Optional[PrefetchStats] = None,
+    rows: Optional[slice] = None,
 ) -> Iterator[dict]:
     """The batches of `iterator` (dicts of numpy arrays) as tensors on
     `device`, staged by a background thread with at most `size` batches in
@@ -255,7 +256,9 @@ def prefetch_to_device(
     by that stream (`record_stream`), so the allocator reuses no buffer while
     the step still reads it. A failed pin or copy raises; no batch stays on
     the host for want of a card (`device` defaults to the card and raises
-    without one). On the CPU the arrays are wrapped as they are.
+    without one). On the CPU the arrays are wrapped as they are. With
+    `rows` (a rank's rows of a global batch, `parallel/mesh.Mesh.batch_rows`)
+    only those rows of each array are staged.
 
     A loader's exception is raised in the consumer. Closing (or dropping)
     the generator stops the worker, which then takes no further batch."""
@@ -268,6 +271,8 @@ def prefetch_to_device(
     stop = threading.Event()
 
     def stage(batch: dict):
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if not cuda:
             return tensors, None, None

@@ -18,6 +18,12 @@ the same seed, so the tests hand the reference's own draws to
 `render_batch` and compare the batches. The appearance draws come after the
 others and only when their knob is on, so the stream with every knob off
 is the one earlier versions drew.
+
+Under a mesh (`parallel/`), `train.make_batch` draws the global batch,
+keeps this rank's rows (`shard_draws`) and renders them; under a render axis
+`render_batch(rows=...)` renders the targets and the image for its band of
+image rows only, keeps the targets as that band (the losses read them so),
+and gathers the image's rows over the render group for the encoder.
 """
 
 from __future__ import annotations
@@ -229,6 +235,12 @@ def sample_draws(
     return draws
 
 
+def shard_draws(draws: dict[str, torch.Tensor], rows: slice) -> dict[str, torch.Tensor]:
+    """The draws of the batch rows `rows` (the occluders' draws carry the
+    batch in their second dimension)."""
+    return {k: v[:, rows] if k.startswith("occ_") else v[rows] for k, v in draws.items()}
+
+
 def _background(draws: dict, mode: str, size: int) -> torch.Tensor | None:
     """The background image [B, S, S, 3] in [0, 1], or None for 'none':
     'noise' is i.i.d. per-pixel colour; 'texture' the 8x8 field upsampled
@@ -245,16 +257,18 @@ def _background(draws: dict, mode: str, size: int) -> torch.Tensor | None:
     return torch.clamp(0.8 * low + 0.2 * draws["bg_grain"], 0.0, 1.0)
 
 
-def _paint_occluders(draws: dict, image: torch.Tensor, cfg: SyntheticConfig) -> torch.Tensor:
+def _paint_occluders(draws: dict, image: torch.Tensor, cfg: SyntheticConfig, y0: int = 0) -> torch.Tensor:
     """Paint the occluder rectangles over the image (only: the targets keep
-    labelling the whole body, as a dataset's annotations do)."""
-    size = image.shape[1]
+    labelling the whole body, as a dataset's annotations do). `image` holds
+    the rows from `y0` on."""
+    h, size = image.shape[1], image.shape[2]
     coords = torch.arange(size, dtype=torch.float32, device=image.device)
+    ys = torch.arange(y0, y0 + h, dtype=torch.float32, device=image.device)
     for i in range(cfg.occluders):
         centre, half = draws["occ_centre"][i], draws["occ_half"][i]
         in_x = torch.abs(coords[None, :] - centre[:, 0:1]) < half[:, 0:1]  # [B, S]
-        in_y = torch.abs(coords[None, :] - centre[:, 1:2]) < half[:, 1:2]
-        mask = (in_y[:, :, None] & in_x[:, None, :])[..., None]  # [B, S, S, 1]
+        in_y = torch.abs(ys[None, :] - centre[:, 1:2]) < half[:, 1:2]  # [B, h]
+        mask = (in_y[:, :, None] & in_x[:, None, :])[..., None]  # [B, h, S, 1]
         image = torch.where(mask, draws["occ_color"][i][:, None, None, :], image)
     return image
 
@@ -266,6 +280,7 @@ def render_batch(
     model_cfg: net.ModelConfig,
     cfg: SyntheticConfig,
     include_3d: bool = False,
+    rows=None,
 ) -> dict[str, torch.Tensor]:
     """One batch from `draws` (see `sample_draws`), on their device:
 
@@ -286,6 +301,10 @@ def render_batch(
     bf16 palette mix summed in float32 over the background colour. Hard
     targets: the hard raster's labels and silhouette, and the image is the
     palette colour of each label (times the shade) over the background.
+
+    With `rows` (parallel/render_sp.Rows) silhouette and part_labels are
+    this rank's band of rows [B, S/n, S], and the image, composed band by
+    band, is gathered whole over the render group.
     """
     if cfg.shading and cfg.targets != "hard":
         raise ValueError(
@@ -305,19 +324,23 @@ def render_batch(
     else:
         palette = palette.expand(B, *palette.shape)
     bg_px = _background(draws, cfg.bg_mode, size)
+    band = slice(0, size) if rows is None else rows.band(size)
+    h = band.stop - band.start
+    if bg_px is not None:
+        bg_px = bg_px[:, band]
     extra = {}
 
     if cfg.targets == "hard":
         hr = raster_hard.hard_raster(
             verts2d, smpl_out["verts"][..., 2], consts.hard, size,
             k_faces=cfg.hard_k_faces or None, with_shade=cfg.shading > 0,
-            light=draws["light"] if cfg.shading else _LIGHT,
+            light=draws["light"] if cfg.shading else _LIGHT, rows=rows,
         )
         part_labels, silhouette = hr["part_labels"], hr["silhouette"]
         if cfg.hard_k_faces:
             extra["hard_overflow"] = hr["overflow"]
         idx = part_labels.reshape(B, -1, 1).long().expand(-1, -1, 3)
-        rgb = torch.gather(palette, 1, idx).reshape(B, size, size, 3)
+        rgb = torch.gather(palette, 1, idx).reshape(B, h, size, 3)
         fg = silhouette[..., None] > 0
         if cfg.shading:
             lit = 1.0 - cfg.shading + cfg.shading * hr["shade"][..., None]
@@ -329,8 +352,8 @@ def render_batch(
         target_raster = dataclasses.replace(model_cfg.raster, matmul_precision="default")
         score = raster.raster_scores_cf(
             verts2d, consts.part_layout, target_raster, impl=model_cfg.raster_impl,
-            out_dtype=torch.bfloat16,
-        )  # [B, C, S, S]
+            out_dtype=torch.bfloat16, rows=rows,
+        )  # [B, C, h, S]
         bg = float(model_cfg.raster.bg_gamma)
         s_total = torch.sum(score, dim=1, dtype=torch.float32)
         best = torch.argmax(score, dim=1).to(torch.int32)
@@ -345,9 +368,11 @@ def render_batch(
         bg_rgb = bg_px if bg_px is not None else palette[:, 0][:, None, None, :]
         image = (bg * bg_rgb + mix) / (bg + s_total)[..., None]
 
-    image = _paint_occluders(draws, image, cfg)
-    image = image + cfg.image_noise * draws["noise"]
+    image = _paint_occluders(draws, image, cfg, band.start)
+    image = image + cfg.image_noise * draws["noise"][:, band]
     image = torch.clamp(image, 0.0, 1.0) * 2.0 - 1.0
+    if rows is not None:
+        image = rows.gather(image, dim=1)
 
     # Keypoints projected outside the crop are invisible, on top of the
     # random dropout.

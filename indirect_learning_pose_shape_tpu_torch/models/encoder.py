@@ -22,7 +22,12 @@ reference has no Pallas kernel in the encoder.
   (1 − momentum)·new`, and the normalization as a float32 per-channel affine
   applied in the compute dtype. Gradients flow through the batch statistics
   by autograd of that formula. The reference returns a new state; here the
-  running `mean`/`var` buffers are updated in place.
+  running `mean`/`var` buffers are updated in place. Under a mesh
+  (`parallel/mesh.py`) the statistics are those of the global batch, as
+  XLA's global view gives the reference: the per-channel means are summed
+  over the data group and divided by its size (`all_reduce_shared`, whose
+  backward sums the cotangent, as SyncBatchNorm's does); at one rank they
+  are the one-process statistics bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +80,15 @@ class BatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
 
-def _batch_norm_train(y: torch.Tensor, bn: BatchNorm, cfg: EncoderConfig) -> torch.Tensor:
-    """Batch statistics (one float32 pass, biased variance); updates the
-    running buffers of `bn` in place."""
+def _batch_norm_train(y: torch.Tensor, bn: BatchNorm, cfg: EncoderConfig, mesh=None) -> torch.Tensor:
+    """Batch statistics (one float32 pass, biased variance; over the global
+    batch under `mesh`); updates the running buffers of `bn` in place."""
     y32 = y.float()
     mean = y32.mean(dim=(0, 2, 3))
     meansq = torch.square(y32).mean(dim=(0, 2, 3))
+    if mesh is not None:  # equal shards: the global mean is the mean of the means
+        stats = mesh_lib.all_reduce_shared(torch.stack([mean, meansq]), mesh.data_group)
+        mean, meansq = stats / mesh.n_data
     var = torch.clamp_min(meansq - torch.square(mean), 0.0)
     with torch.no_grad():
         m = cfg.bn_momentum
@@ -89,12 +99,13 @@ def _batch_norm_train(y: torch.Tensor, bn: BatchNorm, cfg: EncoderConfig) -> tor
     return y * inv.to(y.dtype)[:, None, None] + shift.to(y.dtype)[:, None, None]
 
 
-def _conv_bn(x, w, bn: BatchNorm, stride: int, cfg: EncoderConfig, train: bool) -> torch.Tensor:
-    """conv → BatchNorm: batch statistics when `train`, else the running
-    ones, folded into one conv with a bias when cfg.fold_bn_eval."""
+def _conv_bn(x, w, bn: BatchNorm, stride: int, cfg: EncoderConfig, train: bool, mesh=None) -> torch.Tensor:
+    """conv → BatchNorm: batch statistics when `train` (global under
+    `mesh`), else the running ones, folded into one conv with a bias when
+    cfg.fold_bn_eval."""
     pad = (w.shape[-1] - 1) // 2
     if train:
-        return _batch_norm_train(F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad), bn, cfg)
+        return _batch_norm_train(F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad), bn, cfg, mesh)
     inv, shift = bn.affine(cfg.bn_eps)
     if cfg.fold_bn_eval:
         w = w * inv[:, None, None, None]
@@ -127,18 +138,18 @@ class Block(nn.Module):
             self.proj = _conv_weight(gen, 1, cin, cout)
             self.bn_proj = BatchNorm(cout)
 
-    def run(self, x: torch.Tensor, cfg: EncoderConfig, train: bool) -> torch.Tensor:
+    def run(self, x: torch.Tensor, cfg: EncoderConfig, train: bool, mesh=None) -> torch.Tensor:
         s = self.stride
         shortcut = (
-            _conv_bn(x, self.proj, self.bn_proj, s, cfg, train) if self.has_proj else x
+            _conv_bn(x, self.proj, self.bn_proj, s, cfg, train, mesh) if self.has_proj else x
         )
         if self.bottleneck:
-            y = F.relu(_conv_bn(x, self.conv1, self.bn1, 1, cfg, train))
-            y = F.relu(_conv_bn(y, self.conv2, self.bn2, s, cfg, train))
-            y = _conv_bn(y, self.conv3, self.bn3, 1, cfg, train)
+            y = F.relu(_conv_bn(x, self.conv1, self.bn1, 1, cfg, train, mesh))
+            y = F.relu(_conv_bn(y, self.conv2, self.bn2, s, cfg, train, mesh))
+            y = _conv_bn(y, self.conv3, self.bn3, 1, cfg, train, mesh)
         else:
-            y = F.relu(_conv_bn(x, self.conv1, self.bn1, s, cfg, train))
-            y = _conv_bn(y, self.conv2, self.bn2, 1, cfg, train)
+            y = F.relu(_conv_bn(x, self.conv1, self.bn1, s, cfg, train, mesh))
+            y = _conv_bn(y, self.conv2, self.bn2, 1, cfg, train, mesh)
         return F.relu(y + shortcut)
 
 
@@ -167,11 +178,11 @@ class Encoder(nn.Module):
                 cin = cout
 
 
-def encoder_apply(enc: Encoder, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+def encoder_apply(enc: Encoder, images: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
     """images [B, H, W, 3] float32 in [-1, 1] -> features [B, D] float32.
 
-    train=True normalizes with batch statistics and updates the running
-    statistics of every BatchNorm in place.
+    train=True normalizes with batch statistics (of the global batch under
+    `mesh`) and updates the running statistics of every BatchNorm in place.
     """
     cfg = enc.cfg
     x = images.permute(0, 3, 1, 2).to(cfg.compute_dtype)  # NCHW, channels-last strides
@@ -179,8 +190,8 @@ def encoder_apply(enc: Encoder, images: torch.Tensor, train: bool = False) -> to
         # Plain NCHW on the CPU: the CPU backward of a strided 1x1 conv on
         # channels-last input corrupts memory when run on several threads.
         x = x.contiguous()
-    x = F.relu(_conv_bn(x, enc.stem, enc.bn_stem, 2, cfg, train))
+    x = F.relu(_conv_bn(x, enc.stem, enc.bn_stem, 2, cfg, train, mesh))
     x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
     for name in enc.block_names:
-        x = getattr(enc, name).run(x, cfg, train)
+        x = getattr(enc, name).run(x, cfg, train, mesh)
     return torch.mean(x, dim=(2, 3), dtype=torch.float32)

@@ -5,7 +5,9 @@ projection, plus the soft-raster render of the predicted mesh.
 statistics); `render_outputs` adds the rendered part probabilities and
 silhouette, or the score form the training losses read (`score_cp`,
 `s_total`, `bg_gamma`); `forward_train` is both: the training path with
-`probs=False`, evaluation's rendered outputs with `train=False`.
+`probs=False`, evaluation's rendered outputs with `train=False`. Under a
+mesh (`parallel/`) `forward_train` normalizes with the global batch's
+statistics and, under a render axis, renders this rank's band of rows.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
+from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
 from indirect_learning_pose_shape_tpu_torch.utils.assets import SMPLAsset
 
@@ -93,13 +96,15 @@ def forward(
     images: torch.Tensor,
     cfg: ModelConfig,
     train: bool = False,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """Inference path. images [B, H, W, 3] float32 in [-1, 1] -> outputs.
 
-    train=True uses batch statistics in every BatchNorm and updates the
-    running statistics in place (the reference returns them as new state).
+    train=True uses batch statistics in every BatchNorm (the global batch's
+    under `mesh`) and updates the running statistics in place (the
+    reference returns them as new state).
     """
-    feat = enc.encoder_apply(model.encoder, images, train=train)
+    feat = enc.encoder_apply(model.encoder, images, train=train, mesh=mesh)
     return head_from_features(model.ief, consts, feat, cfg)
 
 
@@ -110,15 +115,18 @@ def forward_train(
     cfg: ModelConfig,
     train: bool = True,
     probs: bool = True,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """`forward`, then the render of the prediction (`render_outputs`).
 
     train=True normalizes with batch statistics (running statistics updated
     in place); train=False uses the running statistics, which is what
     evaluation measures. probs=False renders the score form the training
-    losses read (`score_cp`, `s_total`, `bg_gamma`) instead of `probs`."""
-    outputs = forward(model, consts, images, cfg, train=train)
-    return render_outputs(outputs, consts, cfg, probs=probs)
+    losses read (`score_cp`, `s_total`, `bg_gamma`) instead of `probs`.
+    `mesh` (parallel/mesh.py): global BN statistics, and the render of this
+    rank's band of rows under a render axis."""
+    outputs = forward(model, consts, images, cfg, train=train, mesh=mesh)
+    return render_outputs(outputs, consts, cfg, probs=probs, rows=render_sp.constrainer(mesh))
 
 
 def head_from_features(
@@ -153,19 +161,20 @@ def head_from_features(
 
 
 def render_outputs(
-    outputs: dict, consts: ModelConsts, cfg: ModelConfig, probs: bool = True
+    outputs: dict, consts: ModelConsts, cfg: ModelConfig, probs: bool = True, rows=None
 ) -> dict:
     """outputs + `verts2d`, `silhouette` and either the rendered `probs`
     [B,H,W,C+1] or, with probs=False, the score form
     (ops/raster.soft_rasterize_train): `score_cp` [B,C,H*W], `s_total`
-    [B,H*W] and `bg_gamma`."""
+    [B,H*W] and `bg_gamma`. With `rows` (parallel/render_sp.Rows) the
+    images are the band's rows."""
     verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
     layout, rcfg, impl = consts.part_layout, cfg.raster, cfg.raster_impl
     if probs:
-        rendered = raster.soft_rasterize(verts2d, layout, rcfg, impl=impl)
+        rendered = raster.soft_rasterize(verts2d, layout, rcfg, impl=impl, rows=rows)
         outputs["probs"] = rendered["probs"]
     else:
-        rendered = raster.soft_rasterize_train(verts2d, layout, rcfg, impl=impl)
+        rendered = raster.soft_rasterize_train(verts2d, layout, rcfg, impl=impl, rows=rows)
         outputs.update(score_cp=rendered["score_cp"], s_total=rendered["s_total"],
                        bg_gamma=rcfg.bg_gamma)
     outputs["verts2d"] = verts2d

@@ -24,7 +24,10 @@ not the scatter-add autograd of indexing would emit.
   built from 1-D exponentials, one batched matmul; its backward is two more.
 
 'auto' is the kernel for CUDA tensors and the plain versions for CPU
-tensors. The reference's 'auto' is 'separable', because the TPU's matrix
+tensors; under a render axis it is 'separable', the one route that renders a
+band of rows (`rows`, a `parallel/render_sp.Rows`: the reference's
+`constrain` hook, which acts on its separable route only). The reference's
+'auto' is 'separable', because the TPU's matrix
 unit makes its S-deep products nearly free; here the kernels stay the
 default until a benchmark cell shows the separable route faster end to end
 (`chip_smoke.py` times both at the training batch).
@@ -276,25 +279,51 @@ def separable_scores(
     seg_size: int,
     cfg: RasterConfig,
     out_dtype: torch.dtype | None = None,
+    rows=None,
 ) -> torch.Tensor:
     """The separable raster (the reference's `_raster_scores_separable`):
     vx [B, C*S, 2] class-sorted, sentinel-padded slots (pixels) -> scores
     [B, C, H, W] in float32 at `cfg.matmul_precision`, or in bf16 when
     `out_dtype` is torch.bfloat16. Padding slots sit at the sentinel, so
-    both factors are exactly 0 there. Differentiable in vx."""
+    both factors are exactly 0 there. Differentiable in vx.
+
+    With `rows` (render_sp.Rows) only that band's rows of fy are built and
+    the scores are [B, C, H/n, W]; the gradient of vx is summed over the
+    render group, so every render rank holds the whole image's."""
     if out_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"separable scores come in float32 or bfloat16, not {out_dtype}")
     B, size = vx.shape[0], cfg.image_size
     C, S = num_parts, seg_size
-    v = vx.reshape(B, C, S, 2)
     r = torch.arange(size, dtype=vx.dtype, device=vx.device)
+    ry = r
+    if rows is not None:
+        ry = r[rows.band(size)]
+        vx = rows.sum_grad(vx)
+    v = vx.reshape(B, C, S, 2)
     inv_two_sigma2 = 1.0 / (2.0 * cfg.sigma * cfg.sigma)
     fx = torch.exp(-torch.square(r - v[..., 0:1]) * inv_two_sigma2).reshape(B * C, S, size)
-    fy = torch.exp(-torch.square(r - v[..., 1:2]) * inv_two_sigma2).reshape(B * C, S, size)
+    fy = torch.exp(-torch.square(ry - v[..., 1:2]) * inv_two_sigma2).reshape(B * C, S, len(ry))
     score = _SeparableProduct.apply(
         fy.transpose(1, 2), fx, cfg.matmul_precision, out_dtype == torch.bfloat16
     )
-    return score.reshape(B, C, size, size)
+    return score.reshape(B, C, len(ry), size)
+
+
+def resolve_impl(impl: str, verts2d: torch.Tensor, rows=None) -> str:
+    """The route `impl` names: 'auto' is 'separable' under a render axis,
+    else the kernel on CUDA tensors and the plain versions on the CPU. Rows
+    are rendered by the separable route only."""
+    if impl == "auto":
+        impl = "separable" if rows is not None else ("kernel" if verts2d.is_cuda else "torch")
+    if impl not in IMPLS:
+        raise ValueError(f"raster impl must be one of {IMPLS}, got {impl!r}")
+    if rows is not None and impl != "separable":
+        raise ValueError(
+            f"raster impl {impl!r} cannot render a band of rows: row-sharded rendering "
+            "runs the separable raster, as the reference's (its kernel route is never "
+            "row-sharded)"
+        )
+    return impl
 
 
 def raster_scores_cf(
@@ -303,20 +332,19 @@ def raster_scores_cf(
     cfg: RasterConfig,
     impl: str = "auto",
     out_dtype: torch.dtype | None = None,
+    rows=None,
 ) -> torch.Tensor:
     """Per-class scores, channel-first: verts2d [B, V, 2] (pixels) ->
     [B, C, H, W], the kernel's and the separable product's native layout
     (no transpose), in `out_dtype` when given (the separable impl computes
-    it in that type; the others cast). Differentiable in verts2d."""
+    it in that type; the others cast). Differentiable in verts2d. With
+    `rows`, this rank's band: [B, C, H/n, W]."""
     from indirect_learning_pose_shape_tpu_torch.ops.kernels import raster_cuda
 
-    if impl == "auto":
-        impl = "kernel" if verts2d.is_cuda else "torch"
-    if impl not in IMPLS:
-        raise ValueError(f"raster impl must be one of {IMPLS}, got {impl!r}")
+    impl = resolve_impl(impl, verts2d, rows)
     vx = gather_class_sorted(verts2d, layout)
     if impl == "separable":
-        return separable_scores(vx, layout.num_parts, layout.seg_size, cfg, out_dtype)
+        return separable_scores(vx, layout.num_parts, layout.seg_size, cfg, out_dtype, rows)
     out = raster_cuda.raster_scores4(
         vx, layout.real, layout.num_parts, layout.seg_size, cfg, impl=impl
     )
@@ -324,32 +352,35 @@ def raster_scores_cf(
 
 
 def raster_scores(
-    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto"
+    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto", rows=None
 ) -> torch.Tensor:
-    """Per-class Gaussian scores. verts2d [B, V, 2] (pixels) -> [B, H*W, C]."""
+    """Per-class Gaussian scores. verts2d [B, V, 2] (pixels) -> [B, H*W, C]
+    ([B, H/n*W, C] for a band of `rows`)."""
     B = verts2d.shape[0]
-    score = raster_scores_cf(verts2d, layout, cfg, impl=impl)
+    score = raster_scores_cf(verts2d, layout, cfg, impl=impl, rows=rows)
     return score.reshape(B, layout.num_parts, -1).transpose(1, 2)
 
 
 def soft_rasterize(
-    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto"
+    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto", rows=None
 ) -> dict[str, torch.Tensor]:
-    """probs [B, H, W, C+1] (channel 0 = background), silhouette [B, H, W]."""
+    """probs [B, H, W, C+1] (channel 0 = background), silhouette [B, H, W];
+    H is the band's height with `rows`."""
     B = verts2d.shape[0]
     size, C = cfg.image_size, cfg.num_parts
-    score = raster_scores(verts2d, layout, cfg, impl=impl)
+    score = raster_scores(verts2d, layout, cfg, impl=impl, rows=rows)
+    h = score.shape[1] // size
     s_total = torch.sum(score, dim=-1, keepdim=True)
     denom = cfg.bg_gamma + s_total
     probs = torch.cat([cfg.bg_gamma / denom, score / denom], dim=-1).reshape(
-        B, size, size, C + 1
+        B, h, size, C + 1
     )
-    sil = (s_total / denom).reshape(B, size, size)
+    sil = (s_total / denom).reshape(B, h, size)
     return {"probs": probs, "silhouette": sil}
 
 
 def soft_rasterize_train(
-    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto"
+    verts2d: torch.Tensor, layout: PartLayout, cfg: RasterConfig, impl: str = "auto", rows=None
 ) -> dict[str, torch.Tensor]:
     """Score-form rasterization for the training losses: the normalized
     [B, H, W, C+1] probabilities are never built (losses.part_seg_ce_scores
@@ -357,13 +388,16 @@ def soft_rasterize_train(
 
     Returns score_cp [B, C, H*W] raw class scores (channel-first; in
     `cfg.train_score_dtype` on the separable impl, float32 otherwise),
-    s_total [B, H*W] = Σ_c score (summed in float32), silhouette [B, H, W].
+    s_total [B, H*W] = Σ_c score (summed in float32), silhouette [B, H, W];
+    H is the band's height with `rows`.
     """
     B = verts2d.shape[0]
     size, C = cfg.image_size, cfg.num_parts
+    impl = resolve_impl(impl, verts2d, rows)
     out_dtype = SCORE_DTYPES[cfg.train_score_dtype] if impl == "separable" else None
-    score_cp = raster_scores_cf(verts2d, layout, cfg, impl=impl, out_dtype=out_dtype)
-    score_cp = score_cp.reshape(B, C, size * size)
+    score_cp = raster_scores_cf(verts2d, layout, cfg, impl=impl, out_dtype=out_dtype, rows=rows)
+    h = score_cp.shape[2]
+    score_cp = score_cp.reshape(B, C, h * size)
     s_total = torch.sum(score_cp, dim=1, dtype=torch.float32)
-    sil = (s_total / (cfg.bg_gamma + s_total)).reshape(B, size, size)
+    sil = (s_total / (cfg.bg_gamma + s_total)).reshape(B, h, size)
     return {"score_cp": score_cp, "s_total": s_total, "silhouette": sil}

@@ -19,6 +19,11 @@ reference: a max-reduce of the depth (larger z is nearer), then the class
 the larger class id. Max is order-free, so the result does not depend on
 `chunk`.
 
+With `rows` (a `parallel/render_sp.Rows`) a render rank rasterises only
+its band of tile rows: the tiles are numbered row-major, so a block of tile
+rows is a band of image rows, and the band's outputs are the same rows of
+the whole render. The number of tile rows must divide over the render axis.
+
 `hard_raster_oracle` is a numpy copy of the reference's per-triangle loop,
 for the tests.
 """
@@ -118,6 +123,7 @@ def hard_raster(
     chunk: int = 64,
     with_shade: bool = False,
     light=(0.35, -0.5, 0.79),
+    rows=None,
 ) -> dict[str, torch.Tensor]:
     """Z-buffered part-label render of verts2d [B, V, 2] (pixels) at depth
     verts_z [B, V] (larger is nearer), on verts2d's device.
@@ -130,17 +136,26 @@ def hard_raster(
     Returns part_labels [B, S, S] int32 (0 background, class c → c + 1),
     silhouette [B, S, S] float32 {0, 1}, zbuf [B, S, S] float32 (-3e38 where
     empty), shade [B, S, S] float32 (with_shade; 0 where empty) and overflow,
-    an int32 scalar tensor: the most faces any tile dropped.
+    an int32 scalar tensor: the most faces any tile dropped. With `rows`, the
+    [B, S, S] outputs are the band's [B, S/n, S] and `overflow` the band's.
     """
     if size % tile:
         raise ValueError(f"size {size} must be a multiple of tile {tile}")
+    T = size // tile
+    ty0, tb = 0, T  # the first tile row rendered here, and how many
+    if rows is not None:
+        if T % rows.count:
+            raise ValueError(
+                f"{T} tile rows ({size} px / tile {tile}) not divisible by render axis {rows.count}"
+            )
+        tb = T // rows.count
+        ty0 = rows.index * tb
     dev = verts2d.device
     verts2d = verts2d.detach().float()
     verts_z = verts_z.detach().float()
     light = torch.as_tensor(light, dtype=torch.float32, device=dev)
     B, F = verts2d.shape[0], hc.faces.shape[0]
-    T = size // tile
-    nt = T * T
+    nt = tb * T
 
     coeffs, (xmin, xmax, ymin, ymax), ok = _face_coeffs(verts2d, verts_z, hc, with_shade, light)
     fclass = hc.face_class.expand(B, F)
@@ -150,15 +165,15 @@ def hard_raster(
         # faces of each tile in face order. A stable descending sort picks
         # them as lax.top_k does (lower index first among equal values);
         # torch.topk leaves that order unspecified.
-        tids = torch.arange(T, dtype=torch.float32, device=dev)
-
-        def spans(lo, hi):  # [B, T, F]: tile index within [floor(lo/tile), floor(hi/tile)]
+        def spans(first, n, lo, hi):  # [B, n, F]: tile index within [floor(lo/tile), floor(hi/tile)]
+            tids = torch.arange(first, first + n, dtype=torch.float32, device=dev)
             return (tids[None, :, None] >= torch.floor(lo / tile)[:, None, :]) & (
                 tids[None, :, None] <= torch.floor(hi / tile)[:, None, :])
 
         visible = ok & (xmax >= 0.0) & (xmin <= size - 1.0) & (ymax >= 0.0) & (ymin <= size - 1.0)
         overlap = (
-            spans(ymin, ymax)[:, :, None, :] & spans(xmin, xmax)[:, None, :, :] & visible[:, None, None, :]
+            spans(ty0, tb, ymin, ymax)[:, :, None, :] & spans(0, T, xmin, xmax)[:, None, :, :]
+            & visible[:, None, None, :]
         ).reshape(B, nt, F)
         topval, topidx = torch.sort(overlap.float(), dim=-1, descending=True, stable=True)
         topval, topidx = topval[..., :k_faces], topidx[..., :k_faces]
@@ -185,13 +200,13 @@ def hard_raster(
         slot_class = torch.cat([slot_class, slot_class.new_zeros(*slot_class.shape[:2], npad)], dim=2)
     slot_label = slot_class + 1
 
-    # Pixel coordinates of tile t = ty*T + tx: columns tx*tile + ox, rows
-    # ty*tile + oy. a·px + b·py + c is formed as (a·px) + (b·py) + c, the
+    # Pixel coordinates of tile t = (ty - ty0)*T + tx: columns tx*tile + ox,
+    # rows ty*tile + oy. a·px + b·py + c is formed as (a·px) + (b·py) + c, the
     # reference's order, from the per-column and per-row products.
     off = torch.arange(tile, dtype=torch.float32, device=dev)
     t = torch.arange(nt, device=dev)
     px = ((t % T).float() * tile)[:, None] + off  # [nt, tile]
-    py = ((t // T).float() * tile)[:, None] + off
+    py = ((t // T + ty0).float() * tile)[:, None] + off
     px, py = px[None, :, None, :], py[None, :, None, :]
 
     def eval_z(cf):
@@ -220,8 +235,8 @@ def hard_raster(
         if with_shade:
             swin = torch.maximum(swin, torch.where(hit, cf[..., 12, None, None], 0.0).amax(dim=2))
 
-    def detile(a):  # [B, ty*T + tx, oy, ox] -> [B, S, S]
-        return a.reshape(B, T, T, tile, tile).permute(0, 1, 3, 2, 4).reshape(B, size, size)
+    def detile(a):  # [B, ty*T + tx, oy, ox] -> [B, tb*tile, S]
+        return a.reshape(B, tb, T, tile, tile).permute(0, 1, 3, 2, 4).reshape(B, tb * tile, size)
 
     zbuf = detile(zbuf)
     covered = zbuf > _NEG / 2

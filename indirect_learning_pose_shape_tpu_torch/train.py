@@ -50,6 +50,23 @@ parameters (`ema_decay` > 0). `steps_per_call` fused steps go in one
 `fused_step` call, each with its own step's batch; in eager PyTorch that
 only sets how often `fit` logs, and the disk paths refuse it.
 
+Several GPUs (`config5_data_parallel`; `num_devices`, `render_devices`):
+every rank runs this module on its rows of the global batch, over a mesh of
+the process group (`parallel/mesh.py`, `_auto_mesh`), and computes the
+numbers one process computes on that batch, up to float32 reduction order:
+each step's batch is drawn whole from the step's generator (synthetic
+draws, augmentation draws, disk batches) and cut to the rank's rows; BN
+statistics and every loss term are the global batch's; the gradients are
+summed over the ranks after `backward()` and before the clip. With
+`render_devices` > 1 both renders (targets and prediction) are row-sharded
+(`parallel/render_sp.py`). Rank 0 writes checkpoints and metrics; every rank
+restores. Launch with
+
+    torchrun --nproc_per_node N -m indirect_learning_pose_shape_tpu_torch.train \
+        --preset config5_data_parallel
+
+(NCCL, one card a rank; `--device cpu` runs gloo ranks on the CPU).
+
 Eager PyTorch: no `torch.compile`. TF32 is off, so float32 products (the
 geometry, IEF) run in IEEE float32 as the reference's HIGHEST precision.
 """
@@ -68,6 +85,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indirect_learning_pose_shape_tpu_torch import configs, losses
 from indirect_learning_pose_shape_tpu_torch.data import augment, synthetic
@@ -76,6 +94,8 @@ from indirect_learning_pose_shape_tpu_torch.data import preprocess as pp
 from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import pretrained
+from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
+from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
@@ -212,12 +232,14 @@ _TARGETS_3D = (
 
 
 def loss_and_metrics(
-    model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig
+    model: net.Model, consts: net.ModelConsts, batch: dict, cfg: configs.TrainConfig, mesh=None
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss and its terms, plus the recovery diagnostics `pose_err`
     and `beta_err` (mean absolute error against the batch's ground truth).
-    Updates the BN running statistics in place."""
-    outputs = net.forward_train(model, consts, batch["image"], cfg.model, probs=False)
+    Updates the BN running statistics in place. Under `mesh`, `batch` is
+    this rank's rows (its targets this rank's band of image rows under a
+    render axis) and every value is the global batch's."""
+    outputs = net.forward_train(model, consts, batch["image"], cfg.model, probs=False, mesh=mesh)
     targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
     # The direct-supervision targets: the synthetic stream names them gt_*,
     # disk datasets carry the bare names.
@@ -232,14 +254,17 @@ def loss_and_metrics(
                     "(the synthetic stream, or an npz dataset with that key)"
                 )
             targets[tkey] = batch[src]
-    total, terms = losses.total_loss(outputs, targets, w, cfg.model.image_size)
+    total, terms = losses.total_loss(outputs, targets, w, cfg.model.image_size, mesh)
     with torch.no_grad():
         if "gt_pose" in batch and outputs["pose"].shape == batch["gt_pose"].shape:
-            terms["pose_err"] = torch.mean(torch.abs(outputs["pose"] - batch["gt_pose"]))
+            terms["pose_err"] = losses.global_mean(torch.abs(outputs["pose"] - batch["gt_pose"]), mesh)
         if "gt_betas" in batch:
-            terms["beta_err"] = torch.mean(torch.abs(outputs["betas"] - batch["gt_betas"]))
+            terms["beta_err"] = losses.global_mean(torch.abs(outputs["betas"] - batch["gt_betas"]), mesh)
         if "hard_overflow" in batch:  # faces the hard targets' culling dropped
-            terms["hard_overflow"] = batch["hard_overflow"].float()
+            overflow = batch["hard_overflow"].float()
+            if mesh is not None:
+                overflow = mesh_lib.all_reduce_max(overflow, mesh.world_group)
+            terms["hard_overflow"] = overflow
     return total, terms
 
 
@@ -273,13 +298,16 @@ def apply_update(ts: TrainState, cfg: configs.TrainConfig) -> None:
 
 
 def train_step(
-    ts: TrainState, batch: dict, consts: net.ModelConsts, cfg: configs.TrainConfig
+    ts: TrainState, batch: dict, consts: net.ModelConsts, cfg: configs.TrainConfig, mesh=None
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on `batch`; updates `ts` in place and returns the
-    terms as detached device tensors (no host synchronisation)."""
+    terms as detached device tensors (no host synchronisation). Under
+    `mesh` the gradients are summed over the ranks before the update."""
     ts.optimizer.zero_grad(set_to_none=True)
-    total, terms = loss_and_metrics(ts.model, consts, batch, cfg)
+    total, terms = loss_and_metrics(ts.model, consts, batch, cfg, mesh)
     total.backward()
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(ts.model.parameters(), mesh)
     apply_update(ts, cfg)
     ts.step += 1
     return {k: v.detach() for k, v in terms.items()}
@@ -292,22 +320,29 @@ def step_seed(seed: int, step: int, *stream: int) -> int:
 
 
 def make_batch(
-    seed: int, step: int, batch_size: int, consts: net.ModelConsts, cfg: configs.TrainConfig
+    seed: int, step: int, batch_size: int, consts: net.ModelConsts, cfg: configs.TrainConfig,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """The synthetic batch of `step`, on the consts' device, with the 3D
-    targets when a j3d, v3d or rotmat weight is set."""
+    targets when a j3d, v3d or rotmat weight is set. Under `mesh` the draws
+    of the global batch (`batch_size`) are taken and this rank's rows
+    rendered (its band of image rows of the targets under a render axis)."""
     dev = consts.smpl.v_template.device
     gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step))
     draws = synthetic.sample_draws(
         gen, batch_size, consts, cfg.synthetic, cfg.model.image_size
     )
+    if mesh is not None:
+        draws = synthetic.shard_draws(draws, mesh.batch_rows(batch_size))
     w = cfg.loss_weight_dict
     include_3d = any(w.get(k, 0.0) for k in ("j3d", "v3d", "rotmat"))
-    return synthetic.render_batch(draws, consts, cfg.model, cfg.synthetic, include_3d)
+    return synthetic.render_batch(
+        draws, consts, cfg.model, cfg.synthetic, include_3d, rows=render_sp.constrainer(mesh)
+    )
 
 
 def fused_step(
-    ts: TrainState, consts: net.ModelConsts, cfg: configs.TrainConfig
+    ts: TrainState, consts: net.ModelConsts, cfg: configs.TrainConfig, mesh=None
 ) -> dict[str, torch.Tensor]:
     """`cfg.steps_per_call` fused steps in one call, each generating the
     batch of its own step, then updating; returns the last step's terms.
@@ -315,8 +350,8 @@ def fused_step(
     is a loop, so its size sets only when `fit` logs (capturing it as one
     CUDA graph is a performance follow-up in ROADMAP.md Queue 1)."""
     for _ in range(cfg.steps_per_call):
-        batch = make_batch(ts.seed, ts.step, cfg.batch_size, consts, cfg)
-        terms = train_step(ts, batch, consts, cfg)
+        batch = make_batch(ts.seed, ts.step, cfg.batch_size, consts, cfg, mesh)
+        terms = train_step(ts, batch, consts, cfg, mesh)
     return terms
 
 
@@ -328,12 +363,15 @@ def _fold_num_steps(cfg: configs.TrainConfig, num_steps: Optional[int]):
     return cfg, cfg.num_steps
 
 
-def _setup_checkpoint(cfg: configs.TrainConfig, ts: TrainState, num_steps: int):
+def _setup_checkpoint(cfg: configs.TrainConfig, ts: TrainState, num_steps: int, mesh=None):
     """The checkpointer of `cfg.checkpoint_dir` (None without
     `checkpoint_every`), with the latest checkpoint restored into `ts`;
-    refuses a directory whose latest step is already at or past the budget."""
+    refuses a directory whose latest step is already at or past the budget.
+    Under `mesh` every rank restores, after a barrier."""
     if not cfg.checkpoint_every:
         return None
+    if mesh is not None:
+        mesh_lib.barrier(mesh)
     ckpt = Checkpointer(cfg.checkpoint_dir)
     latest = ckpt.latest_step()
     if latest is not None:
@@ -414,15 +452,62 @@ def preprocess_raw_batch(
 
 
 def data_train_step(
-    ts: TrainState, raw: dict[str, torch.Tensor], consts: net.ModelConsts, cfg: configs.TrainConfig
+    ts: TrainState, raw: dict[str, torch.Tensor], consts: net.ModelConsts, cfg: configs.TrainConfig,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on a raw disk batch: the augmentation draws of
     `ts.step` (when `cfg.augment.enabled`), `preprocess_raw_batch`, then
-    `train_step`."""
+    `train_step`. Under `mesh`, `raw` is this rank's rows of the global
+    batch: the draws are the global batch's, cut to those rows, and under a
+    render axis the targets are cut to this rank's band of image rows."""
     draws = None
     if cfg.augment.enabled:
-        draws = augment_draws(ts.seed, ts.step, raw["images"].shape[0], cfg, raw["images"].device)
-    return train_step(ts, preprocess_raw_batch(raw, cfg, draws), consts, cfg)
+        global_batch = raw["images"].shape[0] * (1 if mesh is None else mesh.n_data)
+        draws = augment_draws(ts.seed, ts.step, global_batch, cfg, raw["images"].device)
+        if mesh is not None:
+            draws = mesh_lib.shard_batch(draws, mesh)
+    return _local_step(ts, preprocess_raw_batch(raw, cfg, draws), consts, cfg, mesh)
+
+
+def _local_step(ts: TrainState, batch: dict, consts, cfg: configs.TrainConfig, mesh=None) -> dict:
+    """`train_step` on this rank's rows of a whole-image batch: under a
+    render axis, its targets cut to the rank's band of rows first."""
+    rows = render_sp.constrainer(mesh)
+    return train_step(ts, batch if rows is None else rows.targets(batch), consts, cfg, mesh)
+
+
+def _auto_mesh(cfg: configs.TrainConfig, device: torch.device | str = "cuda"):
+    """The run's mesh over the process group (the reference's
+    `_auto_mesh`), None for one process: with `render_devices` > 1 a
+    (num_devices / render_devices) x render_devices mesh, else a 1-D data
+    mesh over `num_devices` ranks (None: every launched rank). Raises as
+    the reference does when the devices, the batch or the image do not
+    divide. A mesh spans every launched rank: where the reference would
+    leave devices out (a batch that the device count does not divide),
+    this refuses."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if cfg.render_devices > 1:
+        total = cfg.num_devices or world
+        if total % cfg.render_devices:
+            raise ValueError(f"{total} devices not divisible by render_devices {cfg.render_devices}")
+        n_data = total // cfg.render_devices
+        if cfg.batch_size % n_data:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by the data axis "
+                f"({n_data} = {total} devices / {cfg.render_devices} render)"
+            )
+        if cfg.model.raster.image_size % cfg.render_devices:
+            raise ValueError(
+                f"render image_size {cfg.model.raster.image_size} not divisible by "
+                f"render_devices {cfg.render_devices}"
+            )
+        return render_sp.render_mesh(n_data, cfg.render_devices, device)
+    n = world if cfg.num_devices is None else cfg.num_devices
+    if n == 1 and world == 1:
+        return None
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by num_devices {n}")
+    return mesh_lib.make_mesh(n, device)
 
 
 def _run(
@@ -431,28 +516,39 @@ def _run(
     asset,
     device: torch.device | str,
     log: Optional[Callable[[dict], None]],
-    source: Optional[Callable[[int, torch.device], Iterator[dict]]] = None,
+    source: Optional[Callable[[int, torch.device, Optional[mesh_lib.Mesh]], Iterator[dict]]] = None,
     step: Callable = train_step,
 ) -> tuple[TrainState, dict[str, float]]:
     """The loop of every `fit_*`: init, resume, steps, logs, checkpoints.
     Without `source` the steps are `fused_step` calls on the synthetic
-    stream; with it, `source(start step, device)` gives the device batches
-    from the resumed step and each goes through `step(ts, batch, consts,
-    cfg)`, one step a call."""
+    stream; with it, `source(start step, device, mesh)` gives the device
+    batches from the resumed step and each goes through `step(ts, batch,
+    consts, cfg, mesh)`, one step a call. Under a mesh (`_auto_mesh`) the
+    ranks run on `mesh.device`, rank 0 alone writes checkpoints, metrics and
+    `log`, and the ranks meet at the end, once the last checkpoint is on disk."""
     cfg, num_steps = _fold_num_steps(cfg, num_steps)
     if source is not None and cfg.steps_per_call != 1:
         raise ValueError("steps_per_call applies to synthetic-stream training only")
+    mesh = _auto_mesh(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     ts, consts = init_state(cfg, asset, device)
-    ckpt = _setup_checkpoint(cfg, ts, num_steps)
+    ckpt = _setup_checkpoint(cfg, ts, num_steps, mesh)
+    if mesh is not None:
+        mesh_lib.replicate(ts.model, mesh)
     start, every = ts.step, cfg.checkpoint_every
-    if ckpt and cfg.steps_per_call > every:
+    if ckpt and lead and cfg.steps_per_call > every:
         print(
             f"warning: steps_per_call={cfg.steps_per_call} > checkpoint_every={every}; "
             f"checkpoints land once per call (every {cfg.steps_per_call} steps)",
             file=sys.stderr,
         )
-    batches = None if source is None else source(start, consts.smpl.v_template.device)
-    writer = metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
+    batches = None if source is None else source(start, consts.smpl.v_template.device, mesh)
+    writer = (
+        metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
+        if lead else metrics.MetricsWriter(print_every=0)
+    )
     le = max(1, cfg.log_every)
     values: dict[str, float] = {}
     try:
@@ -460,16 +556,16 @@ def _run(
             first = ts.step
             if batches is None:
                 call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
-                terms = fused_step(ts, consts, call)
+                terms = fused_step(ts, consts, call, mesh)
             else:
-                terms = step(ts, next(batches), consts, cfg)
+                terms = step(ts, next(batches), consts, cfg, mesh)
             if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:
                 values = writer.write(ts.step - 1, terms)
-                if log is not None:
+                if log is not None and lead:
                     log({"step": ts.step - 1, **values})
-            if ckpt and ts.step // every > first // every:
+            if ckpt and lead and ts.step // every > first // every:
                 ckpt.save(ts.step, state_dict(ts))  # the global step: resume-safe
-        if ckpt:
+        if ckpt and lead:
             _final_save(ckpt, ts, start, cfg)
     finally:
         if batches is not None:
@@ -477,6 +573,8 @@ def _run(
         if ckpt:
             ckpt.close()
         writer.close()
+    if mesh is not None:
+        mesh_lib.barrier(mesh)
     return ts, values
 
 
@@ -526,12 +624,15 @@ def fit_dataset(
     `ShardedNpzDataset`) as `fit` does on the stream: `dataset.batches`
     from the resumed step, filtered to `dataset_pulls` before the prefetch
     (so unused arrays never cross to the card), staged by
-    `prefetch_to_device` two batches ahead, each through `data_train_step`."""
+    `prefetch_to_device` two batches ahead, each through `data_train_step`.
+    Under a mesh the dataset gives global batches (`cfg.batch_size`) and
+    each rank stages only its rows."""
     pulls = dataset_pulls(cfg, getattr(dataset, "keys", frozenset()))
 
-    def source(start: int, dev: torch.device) -> Iterator[dict]:
+    def source(start: int, dev: torch.device, mesh) -> Iterator[dict]:
         raw = ({k: b[src] for k, src in pulls.items() if src in b} for b in dataset.batches(start))
-        return dataset_lib.prefetch_to_device(raw, size=2, device=dev)
+        rows = None if mesh is None else mesh.batch_rows(cfg.batch_size)
+        return dataset_lib.prefetch_to_device(raw, size=2, device=dev, rows=rows)
 
     return _run(cfg, num_steps, asset, device, log, source, data_train_step)
 
@@ -558,10 +659,11 @@ def fit_preprocessed(
             "mirror + crop jitter) or disable augmentation."
         )
 
-    def source(start: int, dev: torch.device) -> Iterator[dict]:
-        return dataset_lib.prefetch_to_device(dataset.batches(start), size=2, device=dev)
+    def source(start: int, dev: torch.device, mesh) -> Iterator[dict]:
+        rows = None if mesh is None else mesh.batch_rows(cfg.batch_size)
+        return dataset_lib.prefetch_to_device(dataset.batches(start), size=2, device=dev, rows=rows)
 
-    return _run(cfg, num_steps, asset, device, log, source)
+    return _run(cfg, num_steps, asset, device, log, source, _local_step)
 
 
 def _weights(spec_list, base: tuple, error) -> tuple:
@@ -679,6 +781,17 @@ def main(argv=None) -> int:
 
     if args.debug_nans:
         debug.enable_nan_checks()
+    # Under torchrun: join the launched group (NCCL on the card, gloo for
+    # --device cpu); _auto_mesh then spans it.
+    joined = mesh_lib.init_from_env("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    try:
+        return _main_run(args, cfg)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main_run(args, cfg: configs.TrainConfig) -> int:
     trace = metrics.profile_trace(args.profile) if args.profile else contextlib.nullcontext()
     def log(rec):
         print(json.dumps(rec), flush=True)
@@ -699,7 +812,8 @@ def main(argv=None) -> int:
             _, terms = fit_dataset(cfg, ds, num_steps=args.steps, device=args.device, log=log)
         else:
             _, terms = fit(cfg, num_steps=args.steps, device=args.device, log=log)
-    print(f"done in {time.time() - t0:.1f}s; final: {terms}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"done in {time.time() - t0:.1f}s; final: {terms}")
     return 0
 
 

@@ -130,14 +130,15 @@ def test_load_model_from_npz(tiny_asset, reference, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules, serving (float and int8), a training step on hard
+    """The port's modules (the multi-GPU ones too), serving (float and int8), a training step on hard
     targets with appearance randomisation and one on a written disk dataset
     with augmentation, the int8 evaluation and the example's step, on the
     CPU, import neither jax nor the JAX package (nor does importing the
     export and the tools)."""
     code = (
         "import dataclasses, sys, torch\n"
-        "from indirect_learning_pose_shape_tpu_torch import configs, evaluate, export, losses, predict, serve, train\n"
+        "from indirect_learning_pose_shape_tpu_torch import configs, entry, evaluate, export, losses, predict, serve, train\n"
+        "from indirect_learning_pose_shape_tpu_torch.parallel import mesh, render_sp\n"
         "from indirect_learning_pose_shape_tpu_torch.data import augment, dataset, image_dir, native_preprocess\n"
         "from indirect_learning_pose_shape_tpu_torch.data import preprocess, synthetic\n"
         "from indirect_learning_pose_shape_tpu_torch.models import encoder, ief, network, pretrained, quantize\n"

@@ -143,12 +143,17 @@ def test_train_loss_over_steps_matches_jax(runs):
     ("render_devices", 2), ("num_devices", 4),
 ])
 def test_unported_train_fields_are_refused(field, value, tmp_path, monkeypatch):
-    """The multi-GPU fields are refused, naming their ROADMAP item.
-    `pretrained` and `mean_params` are taken: `train.main --pretrained` /
+    """Once refused, now taken. The multi-GPU fields hold the value the
+    reference's hold and a value below 1 is refused, naming the field
+    (the mesh they select is checked in test_torch_render_sp.py).
+    `pretrained` and `mean_params`: `train.main --pretrained` /
     `--mean-params` (one step on the CPU) starts from the file's weights."""
     if field in ("render_devices", "num_devices"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 16"):
-            dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+        cfg = dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
+        ref = dataclasses.replace(jconfigs.CONFIG4_FULL, **{field: value})
+        assert getattr(cfg, field) == getattr(ref, field) == value
+        with pytest.raises(ValueError, match=field):
+            dataclasses.replace(configs.CONFIG4_FULL, **{field: 0})
         return
     from indirect_learning_pose_shape_tpu_torch.models import pretrained
     from tests.test_torch_pretrained import _torchvision_sd
@@ -193,7 +198,7 @@ def test_bad_optimizer_fields_are_refused(field, value):
         dataclasses.replace(configs.CONFIG4_FULL, **{field: value})
 
 
-_UNPORTED_PRESETS = {"config5_data_parallel"}  # item 16
+_UNPORTED_PRESETS = set()
 
 
 def _fields(obj, names):
