@@ -25,6 +25,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    exact zeros for padding and off-canvas slots, bitwise-equal repeated
    runs. Prints each kernel's and twin's device time: each call captured in
    a CUDA graph and replayed, so no host launch cost is in the number.
+   Then both forward kernels at full width against the float64 numpy
+   oracle (`utils/oracle.py`, `oracle_phase`): SMPL through the LBS kernel
+   on 4 posed bodies, and one body's 256² soft raster through the raster
+   forward kernel, at the limits of the port's CPU oracle tests.
 4. Serving: a `Predictor` on the full-width config4_full model (ResNet-18
    bf16, IEF, SMPL, seed-0 weights) with both forward kernels on (`auto`),
    warmed up, answers requests of batch 1, 3, 8 and 32 and renders each
@@ -127,7 +131,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    step, host wall, all-reduce bytes and ms), a 1 x PAR_RANKS render mesh
    (separable rows and vertex gradient vs local, the SP step's loss vs the
    one-process separable step within SP_LOSS_TOL, 2/0/0 launches, the hard
-   raster in tile bands equal to dense, LBS vs plain); then
+   raster in tile bands equal to dense, LBS vs plain); the bf16 step's
+   gradients against one process that does the mesh's arithmetic
+   (`partitioned_bn`: BN statistics as the mean of the half-batch means,
+   alone and with each conv and normalisation per half; the latter holds
+   the rank to 1e-4 over the whole gradient and per leaf to FLOOR_MULTIPLE
+   x the larger of the jittered floor and the statistics floor, the first
+   process against one process); sharded int8 serving (`quantized_forward`
+   with a mesh, int8 and int8c, a request of 32: qparams calibrated on rank
+   0 and replicated, the gathered outputs against one process, one LBS
+   launch a rank a call, host ms a call); then
    `torchrun --nproc_per_node 1 -m ...train --preset config5_data_parallel`.
    Times of ranks sharing one card are no multi-GPU rate.
 
@@ -138,7 +151,8 @@ the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
 requests and their evaluation (`launches_int8`), in the example
 (`launches_fit`) and on the parallel phase's counted steps per rank
-(`launches_parallel_nccl`, `_dp`, `_sp`), its
+(`launches_parallel_nccl`, `_dp`, `_sp`), in rank 0's sharded int8 calls
+(`launches_parallel_int8`) and in the oracle checks (`launches_oracle`), its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -165,10 +179,12 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from indirect_learning_pose_shape_tpu_torch import configs, evaluate, losses, predict, serve, train
 from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
 from indirect_learning_pose_shape_tpu_torch.data import native_preprocess, synthetic
+from indirect_learning_pose_shape_tpu_torch.models import encoder as encoder_lib
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
@@ -178,7 +194,7 @@ from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.tools import quality_eval
 from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import device_summary, smi_line
 from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms, events_ms
-from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics
+from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics, oracle
 from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
@@ -272,6 +288,14 @@ PER_EVAL_BATCH_DISK = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1}  # forward, gr
 # The card's preprocess against the CPU's on the same raw batch (float32 of
 # the same operations: an H100 is expected to read 0).
 PREPROCESS_TOL = 1e-5
+
+# The float64 oracle checks at full width, at the limits of the port's CPU
+# oracle tests (tests/test_torch_smpl.py, tests/test_torch_oracle.py: the
+# reference's 2e-3 on probabilities).
+ORACLE_BODIES = 4
+ORACLE_SEED = 1  # its own draws: the later phases' inputs stay as they were
+SMPL_ORACLE_TOL = 2e-4
+RASTER_ORACLE_TOL = 2e-3
 
 # The card's limits for bounds (H100 SXM, at its 700 W limit): HBM 3.35 TB/s
 # and 67 TFLOP/s float32 outside the tensor cores (NVIDIA's data sheet);
@@ -444,6 +468,49 @@ def culled_plain_raster():
         raster_cuda.raster_scores4 = kernel
 
 
+@contextlib.contextmanager
+def partitioned_bn(parts: int, per_block: bool = False):
+    """Inside the block, train-mode conv → BatchNorm in one process takes the
+    arithmetic of a data mesh of `parts` ranks over its equal row blocks:
+    the statistics are the mean of the blocks' means (a rank's all-reduce
+    divided by n_data). With `per_block` each conv and each normalisation
+    also runs on each block, as on a rank (its cuDNN shapes, and the bf16
+    per-channel sums of the normalisation's backward over a block)."""
+    plain = encoder_lib._conv_bn
+
+    def partitioned(x, w, bn, stride, cfg, train, mesh=None):
+        if not train or mesh is not None:
+            return plain(x, w, bn, stride, cfg, train, mesh)
+        pad = (w.shape[-1] - 1) // 2
+        if per_block:
+            ys = [F.conv2d(h, w.to(h.dtype), stride=stride, padding=pad) for h in x.chunk(parts)]
+        else:
+            ys = list(F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad).chunk(parts))
+        stats = sum(
+            torch.stack([y.float().mean(dim=(0, 2, 3)), torch.square(y.float()).mean(dim=(0, 2, 3))])
+            for y in ys
+        )
+        mean, meansq = stats / parts
+        var = torch.clamp_min(meansq - torch.square(mean), 0.0)
+        with torch.no_grad():
+            m = cfg.bn_momentum
+            bn.mean.copy_(m * bn.mean + (1 - m) * mean)
+            bn.var.copy_(m * bn.var + (1 - m) * var)
+        inv = torch.rsqrt(var + cfg.bn_eps) * bn.scale
+        shift = bn.bias - mean * inv
+
+        def norm(y):
+            return y * inv.to(y.dtype)[:, None, None] + shift.to(y.dtype)[:, None, None]
+
+        return torch.cat([norm(y) for y in ys]) if per_block else norm(torch.cat(ys))
+
+    encoder_lib._conv_bn = partitioned
+    try:
+        yield
+    finally:
+        encoder_lib._conv_bn = plain
+
+
 def norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over max |b|."""
     return max_err(a, b) / (float(b.abs().max()) + 1e-12)
@@ -607,6 +674,56 @@ def raster_phase(model_consts, cfg, verts2d, far) -> dict:
         f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
     )
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+
+
+def oracle_phase(model_consts, asset, cfg, smi) -> dict:
+    """The LBS and raster forward kernels at full width against the float64
+    numpy oracle (`utils/oracle.py`): SMPL through the LBS kernel on
+    ORACLE_BODIES posed bodies (V = 6890) against `oracle.smpl_forward` per
+    body, and the first body's soft raster through the forward kernel (the
+    config's size, parts, σ and γ) against `oracle.soft_rasterize` on the
+    same pixel vertices. Returns the launches of its one call of each."""
+    t_phase = time.perf_counter()
+    n, S, rcfg = ORACLE_BODIES, cfg.image_size, cfg.raster
+    dev = model_consts.smpl.v_template.device
+    rng = np.random.RandomState(ORACLE_SEED)
+    pose = (rng.randn(n, 72) * 0.3).astype(np.float32)
+    betas = rng.randn(n, 10).astype(np.float32)
+    cam = torch.tensor([[0.9, 0.05, -0.05]], device=dev)
+    _build.reset_counts()
+    with torch.no_grad():
+        got = smpl.smpl_forward(model_consts.smpl, torch.tensor(pose, device=dev),
+                                torch.tensor(betas, device=dev), impl="kernel")
+        v2 = camera.project_pixel(got["verts"][:1], cam, S)
+        rend = raster.soft_rasterize(v2, model_consts.part_layout, rcfg, impl="kernel")
+    torch.cuda.synchronize()
+    launches = _build.counts()
+    check(launches == {lbs_cuda.KERNEL: 1, raster_cuda.KERNEL: 1}, f"oracle phase launches {launches}")
+    errs = dict.fromkeys(("verts", "joints", "kp3d"), 0.0)
+    for i in range(n):
+        want = oracle.smpl_forward(asset, pose[i], betas[i])
+        for k in errs:
+            errs[k] = max(errs[k], float(np.abs(got[k][i].cpu().double().numpy() - want[k]).max()))
+    check(max(errs.values()) <= SMPL_ORACLE_TOL, f"LBS kernel SMPL vs the float64 oracle: {errs}")
+    labels = np.minimum(asset.part_labels(), rcfg.num_parts - 1)
+    t0 = time.perf_counter()
+    want = oracle.soft_rasterize(v2[0].cpu().numpy(), labels, S, rcfg.num_parts, rcfg.sigma, rcfg.bg_gamma)
+    oracle_s = time.perf_counter() - t0
+    r_errs = {k: float(np.abs(rend[k][0].cpu().double().numpy() - want[k]).max()) for k in ("probs", "silhouette")}
+    fg = float(want["silhouette"].mean())
+    check(fg > 0.01, f"oracle raster: silhouette covers {fg} of the pixels")
+    check(max(r_errs.values()) <= RASTER_ORACLE_TOL, f"raster kernel vs the float64 oracle: {r_errs}")
+    print(
+        f"[oracle] LBS kernel SMPL on {n} bodies (V={asset.num_verts}) vs float64 oracle.smpl_forward: max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (limit {SMPL_ORACLE_TOL}); raster forward kernel, one image {S}^2, {rcfg.num_parts} parts, "
+        f"sigma {rcfg.sigma}, gamma {rcfg.bg_gamma}, silhouette {fg:.4f} of the pixels, vs float64 "
+        f"oracle.soft_rasterize: max abs probs {r_errs['probs']:.3e}, silhouette {r_errs['silhouette']:.3e} "
+        f"(limit {RASTER_ORACLE_TOL}); the oracle's raster took {oracle_s:.1f} s of host time "
+        f"({S * S} x {asset.num_verts} float64 pairs) [{smi}]"
+    )
+    print(f"[oracle] phase in {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def raster_bwd_phase(model_consts, cfg, verts2d, far, rng) -> dict:
@@ -2043,6 +2160,14 @@ PAR_STEPS = 3
 PAR_RENDER_IMAGES = 8  # images of the row-sharded render checks
 PAR_HARD_IMAGES = 4  # images of the hard raster's band check
 PER_STEP_SP = {lbs_cuda.KERNEL: 2}  # SP renders on the separable route: no raster kernel
+# Sharded int8 serving: a global request of 32 (16 a rank), timed over
+# PAR_INT8_CALLS calls; one LBS launch a rank a call; kp2d within the
+# reference's limit (tests/test_sharding.py), in pixels.
+PAR_INT8_BATCH = 32
+PAR_INT8_CALLS = 5
+PAR_INT8_IMPLS = ("int8", "int8c")
+PER_CALL_INT8 = {lbs_cuda.KERNEL: 1}
+INT8_KP2D_TOL = 2e-3
 SP_LOSS_TOL = 2e-3  # the reference's limit, SP loss vs the 1-D loss
 # The rank's step against one process with the bf16 encoder: loss terms, the
 # gradients' global error and the BN buffers within a few units of bf16
@@ -2190,6 +2315,35 @@ def nccl_world1(asset, smi) -> dict:
     return {"launches": launches, "ms": ms, "bitwise": bitwise}
 
 
+def sharded_int8(model, consts, request, cfg, mesh) -> dict:
+    """Sharded int8 serving on this rank: qparams calibrated on rank 0 (the
+    other ranks calibrate on zeros) and replicated, then for each impl the
+    whole request through `quantized_forward(..., mesh)` against one process
+    on it: errors, the rank's launches in one call, host ms a call."""
+    from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+
+    with torch.no_grad():
+        calib = request if mesh.rank == 0 else torch.zeros_like(request)
+        qenc = quant.as_encoder(quant.ptq_quantize(model.encoder, calib), cfg.model.encoder, mesh.device)
+        mesh_lib.replicate(qenc, mesh)
+        out = {}
+        for impl in PAR_INT8_IMPLS:
+            def call(m=mesh):
+                return quant.quantized_forward(qenc, model.ief, consts, request, cfg.model, impl, m)
+
+            one = call(None)
+            _build.reset_counts()
+            got = call()
+            torch.cuda.synchronize()
+            launches = _build.counts()
+            out[impl] = {
+                "shapes": all(got[k].shape == v.shape for k, v in one.items()) and set(got) == set(one),
+                **{k: max_err(got[k], one[k]) for k in ("kp2d", "verts", "theta")},
+                "launches": launches, "ms": request_ms(call, PAR_INT8_CALLS),
+            }
+    return out
+
+
 def parallel_rank(device) -> dict:
     """One of PAR_RANKS gloo ranks on the card: the data-parallel step on its
     rows against the one-process step on the global batch, the kernels
@@ -2245,14 +2399,26 @@ def parallel_rank(device) -> dict:
                 tt, gt, _ = step1(mt, consts, local, cfg_t, mesh)
             out["plain"] = {"terms": term_err(tm, tt), **grad_errs(gm, gt)}
         else:
-            floor = 0.0
+            floor = (0.0, 0.0)  # (IEF, encoder)
             for seed in JITTER_SEEDS:
                 mj = copy.deepcopy(init_model)
                 mj.encoder.cfg = enc_cfg
                 with jittered_render(JITTER, seed):
                     _, gj, _ = step1(mj, consts, glob, cfg)
-                floor = max(floor, leaf_errs(gj, g1)[1])
-            out[label]["floor"] = floor
+                floor = tuple(map(max, floor, leaf_errs(gj, g1)))
+            # The bf16 gap: one process on the global batch with the mesh's
+            # BN statistics (the mean of the half-batch means), and with each
+            # conv and normalisation run per half too.
+            halves = {}
+            for name, per_block in (("half_means", False), ("per_block", True)):
+                mh = copy.deepcopy(init_model)
+                mh.encoder.cfg = enc_cfg
+                with partitioned_bn(mesh.n_data, per_block):
+                    _, halves[name], _ = step1(mh, consts, glob, cfg)
+            out[label].update(
+                floor=floor, stats_floor=leaf_errs(halves["half_means"], g1),
+                **{name: grad_errs(gm, g) for name, g in halves.items()},
+            )
 
     # Counted data-parallel steps, the gradient all-reduce timed.
     st = train.new_state(copy.deepcopy(init_model), cfg, cfg.seed)
@@ -2263,6 +2429,7 @@ def parallel_rank(device) -> dict:
     with timed_grad_reduce(record):  # apart: its synchronizes would stretch the steps above
         timed_steps(st, consts, cfg, mesh, PAR_STEPS)
     out["dp"] = {"launches": launches, "ms": statistics.median(times), **reduce_stats(record)}
+    out["int8"] = sharded_int8(init_model, consts, glob["image"][:PAR_INT8_BATCH], cfg, mesh)
 
     # The 1 x PAR_RANKS render mesh: each rank renders a band of rows.
     mesh2 = render_sp.render_mesh(1, PAR_RANKS, device)
@@ -2348,6 +2515,16 @@ def parallel_phase(asset, smi) -> dict:
         check(f32["bn"] <= 1e-5, f"{tag}: BN running buffers err {f32['bn']}")
         check(r["update_bitwise"], f"{tag}: the update of the summed gradients is not the one-process update")
         check(max(bf["terms"], bf["global"], bf["bn"]) <= BF16_TOL, f"{tag}: bf16 step vs one process {bf}")
+        pb = bf["per_block"]
+        bf_limits = [FLOOR_MULTIPLE * max(f, sf) for f, sf in zip(bf["floor"], bf["stats_floor"])]
+        for k, lim in zip(("head", "encoder"), bf_limits):
+            check(pb[k] <= lim, f"{tag}: bf16 {k} gradients {pb[k]} vs one process with the mesh's "
+                                f"partition, over {FLOOR_MULTIPLE} x the floor ({lim})")
+        check(pb["global"] <= 1e-4, f"{tag}: bf16 whole gradient vs one process with the mesh's partition {pb}")
+        for impl, q in r["int8"].items():
+            check(q["shapes"] and q["kp2d"] <= INT8_KP2D_TOL,
+                  f"{tag}: sharded {impl} vs one process: shapes {q['shapes']}, kp2d {q['kp2d']}")
+            check(q["launches"] == PER_CALL_INT8, f"{tag}: sharded {impl}: launches {q['launches']} in one call")
         pl = r["plain"]
         check(pl["terms"] <= 1e-4 and pl["head"] <= 1e-3 and pl["encoder"] <= 1e-3,
               f"{tag}: kernels vs plain versions (culled plain raster) on the rank's path: {pl}")
@@ -2374,10 +2551,28 @@ def parallel_phase(asset, smi) -> dict:
             f"buffers {f32['bn']:.3e}, update bitwise; bf16 terms {bf['terms']:.3e} (floor "
             f"{bf['order']['terms']:.3e}), gradients {bf['global']:.3e}, {bf['head']:.3e} / {bf['encoder']:.3e} "
             f"(floor {bf['order']['global']:.3e}, {bf['order']['head']:.3e} / {bf['order']['encoder']:.3e}; "
-            f"jittered-vertices floor of the encoder {bf['floor']:.3e}), BN buffers {bf['bn']:.3e}; kernels "
-            f"vs plain versions on its path: terms {pl['terms']:.3e}, gradients {pl['global']:.3e}, "
+            f"jittered-vertices floor {bf['floor'][0]:.3e} / {bf['floor'][1]:.3e}), BN buffers {bf['bn']:.3e}; "
+            f"kernels vs plain versions on its path: terms {pl['terms']:.3e}, gradients {pl['global']:.3e}, "
             f"{pl['head']:.3e} / {pl['encoder']:.3e}"
         )
+        hm = bf["half_means"]
+        print(
+            f"{tag}: bf16 gap, the rank's step-1 gradients (global, then per leaf IEF / encoder) against one "
+            f"process on the global batch with the mesh's BN statistics (the mean of the {PAR_RANKS} "
+            f"half-batch means): {hm['global']:.3e}, {hm['head']:.3e} / {hm['encoder']:.3e}; that process vs "
+            f"the plain one process (statistics floor) {bf['stats_floor'][0]:.3e} / {bf['stats_floor'][1]:.3e}; "
+            f"against one process with each conv, the statistics and the normalisation per half: "
+            f"{pb['global']:.3e} (limit 1e-4), {pb['head']:.3e} / {pb['encoder']:.3e} (limits {FLOOR_MULTIPLE} x "
+            f"the larger floor: {bf_limits[0]:.3e} / {bf_limits[1]:.3e})"
+        )
+        for impl, q in r["int8"].items():
+            print(
+                f"{tag}: sharded {impl} serving, request {PAR_INT8_BATCH} ({PAR_INT8_BATCH // PAR_RANKS} a rank), "
+                f"qparams calibrated on rank 0 and replicated: gathered outputs vs one process max abs kp2d "
+                f"{q['kp2d']:.3e} px (limit {INT8_KP2D_TOL}), verts {q['verts']:.3e}, theta {q['theta']:.3e}; "
+                f"launches in one call {q['launches']}; host {q['ms']:.3f} ms a call (median of {PAR_INT8_CALLS}; "
+                f"gloo ranks share the card: no multi-GPU rate) [{smi}]"
+            )
         print(
             f"{tag}: {PAR_STEPS} DP steps, host wall {r['dp']['ms']:.3f} ms/step (ranks share the card: no "
             f"multi-GPU rate), launches {r['dp']['launches']}; gradient all-reduce "
@@ -2402,7 +2597,12 @@ def parallel_phase(asset, smi) -> dict:
           f"from torchrun's environment; one rank trains with no mesh, as the reference on one device)")
     print(f"[parallel] phase in {time.perf_counter() - t_phase:.1f} s")
     r0 = ranks[0]
-    return {"nccl": nccl["launches"], "dp": r0["dp"]["launches"], "sp": r0["sp"]["launches"]}
+    int8_launches = {}
+    for q in r0["int8"].values():
+        for k, v in q["launches"].items():
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    return {"nccl": nccl["launches"], "dp": r0["dp"]["launches"], "sp": r0["sp"]["launches"],
+            "int8": int8_launches}
 
 
 def main() -> int:
@@ -2438,6 +2638,7 @@ def main() -> int:
     lbs = lbs_phase(asset, rng, smi)
     verts2d, far = posed_verts2d(consts, asset, cfg, rng)
     ras4 = raster_phase(consts, cfg, verts2d, far)
+    oracle_launches = oracle_phase(consts, asset, cfg, smi)
     bwd4 = raster_bwd_phase(consts, cfg, verts2d, far, rng)
     serve_launches = serving_phase(cfg, model, consts, rng, smi)
     tr = training_phase(asset, smi)
@@ -2464,6 +2665,8 @@ def main() -> int:
             launches_parallel_nccl=par["nccl"].get(name, 0),
             launches_parallel_dp=par["dp"].get(name, 0),
             launches_parallel_sp=par["sp"].get(name, 0),
+            launches_parallel_int8=par["int8"].get(name, 0),
+            launches_oracle=oracle_launches.get(name, 0),
             **{"library_ms": None, **numbers},
         )
 

@@ -55,6 +55,7 @@ from torch import nn
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief as ief_mod
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import full_f32
 
 IMPLS = ("int8", "sim", "int8c", "simc")
@@ -417,10 +418,20 @@ def quantized_forward(
     images: torch.Tensor,
     cfg: net.ModelConfig,
     impl: str = "int8",
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """images -> `network.forward`'s outputs through the quantized encoder;
     the head (IEF, SMPL through `cfg.smpl_impl`, projection) as the float
-    path's `network.head_from_features`."""
+    path's `network.head_from_features`.
+
+    Under a data mesh (`parallel/mesh.py`) `images` is the whole request on
+    every rank, qparams and `ief` replicated (the same file, or
+    `mesh.replicate`): each rank runs its rows (`mesh.batch_rows`; a batch
+    the data axis does not divide is refused) and every rank returns the
+    whole batch's outputs (`mesh.gather_rows`)."""
+    if mesh is not None:
+        out = quantized_forward(qparams, ief, consts, images[mesh.batch_rows(images.shape[0])], cfg, impl)
+        return {k: mesh_lib.gather_rows(v, mesh) for k, v in out.items()}
     feat = quantized_encoder_apply(qparams, images, cfg.encoder, impl)
     return net.head_from_features(ief, consts, feat, cfg)
 

@@ -260,6 +260,27 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
+@torch.no_grad()
+def gather_band(x: torch.Tensor, index: int, count: int, group, dim: int = 0) -> torch.Tensor:
+    """The whole tensor from every rank's equal band along `dim`: this
+    rank's `x`, band `index` of `count`, written into zeros, then summed over
+    `group` (adding zeros is exact; gloo reduces CUDA tensors but does not
+    gather them)."""
+    shape = list(x.shape)
+    h = shape[dim]
+    shape[dim] = h * count
+    out = x.new_zeros(shape)
+    out.narrow(dim, index * h, h).copy_(x)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's rows of a batch-major tensor (`mesh.batch_rows`) -> the
+    whole batch, on every rank of its data group."""
+    return gather_band(x, mesh.data_index, mesh.n_data, mesh.data_group)
+
+
 def barrier(mesh: Mesh) -> None:
     """Wait for every rank (an all-reduce on the mesh's device: gloo and
     NCCL alike)."""

@@ -22,7 +22,6 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from indirect_learning_pose_shape_tpu_torch import losses
 from indirect_learning_pose_shape_tpu_torch.ops import raster
@@ -58,18 +57,10 @@ class Rows:
         """`x`, with its gradient summed over the render group."""
         return mesh_lib.sum_grad(x, self.group)
 
-    @torch.no_grad()
     def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """The whole image from every rank's band of rows along `dim`: each
-        band written into zeros, then summed over the render group (adding
-        zeros is exact; gloo reduces CUDA tensors but does not gather them)."""
-        shape = list(x.shape)
-        h = shape[dim]
-        shape[dim] = h * self.count
-        out = x.new_zeros(shape)
-        out.narrow(dim, self.index * h, h).copy_(x)
-        dist.all_reduce(out, group=self.group)
-        return out
+        """The whole image from every rank's band of rows along `dim`
+        (`mesh.gather_band` over the render group)."""
+        return mesh_lib.gather_band(x, self.index, self.count, self.group, dim)
 
     def targets(self, batch: dict) -> dict:
         """`batch` with its image targets (ROW_KEYS) cut to this band."""

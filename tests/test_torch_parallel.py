@@ -13,6 +13,13 @@ One spawn of 2 ranks (`_ranks`) runs, on converted initial parameters:
   one-process batch);
 - `fit_dataset` with augmentation for 4 steps, straight and resumed at
   step 2 from rank 0's checkpoint;
+- `fit_preprocessed` for 4 steps over an in-memory stream of preprocessed
+  batches;
+- sharded int8 serving: `quantize.quantized_forward` (int8, int8c) on the
+  global request with the qparams read from one file, against the port's
+  one process (1e-5) and the reference's single-device `quantized_forward`
+  on the same file and converted parameters (`kp2d` within 2e-3, the limit
+  of its tests/test_sharding.py);
 - on a 1 x 2 render mesh: the row-sharded separable render and its vertex
   gradient against the local render, the SP train step against the DP one
   (same step-0 batch), and the hard raster in two tile bands at 64².
@@ -33,6 +40,7 @@ from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief
 from indirect_learning_pose_shape_tpu_torch.models import network as net
+from indirect_learning_pose_shape_tpu_torch.models import quantize
 from indirect_learning_pose_shape_tpu_torch.ops import raster, raster_hard
 from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
@@ -79,13 +87,34 @@ def _snapshot(ts, terms):
     }
 
 
+# The arrays of a preprocessed batch (data/image_dir.ImageDirDataset's).
+PREPROCESSED_KEYS = ("image", "silhouette", "part_labels", "kp2d", "kp_vis")
+INT8_IMPLS = ("int8", "int8c")
+
+
+class _Preprocessed:
+    """An in-memory stream of preprocessed global batches, cycled, for
+    `fit_preprocessed` (no augmentation of its own)."""
+
+    augment = None
+
+    def __init__(self, batches: list):
+        self.stream = batches
+
+    def batches(self, start: int = 0):
+        step = start
+        while True:
+            yield self.stream[step % len(self.stream)]
+            step += 1
+
+
 def _fused(cfg, device):
     """One fused step from a fresh seed-0 state on the run's mesh."""
     ts, consts = train.init_state(cfg, _asset(), device)
     return float(train.fused_step(ts, consts, cfg, train._auto_mesh(cfg, device))["total"])
 
 
-def _ranks(device, sd, batch, arrays, ckpt_dir):
+def _ranks(device, sd, batch, arrays, ckpt_dir, preprocessed, qpath):
     out = {}
     cfg = _cfg()
     mesh = mesh_lib.make_mesh(None, device)
@@ -104,6 +133,37 @@ def _ranks(device, sd, batch, arrays, ckpt_dir):
     train.fit_dataset(resumable, ds, 2, _asset(), device)
     ts, values = train.fit_dataset(resumable, ds, FIT_STEPS, _asset(), device)
     out["resumed"] = {"values": values, "state": ts.model.state_dict(), "step": ts.step}
+    staged, step = [], train._local_step
+
+    def recorded_step(ts, b, *args):  # the rows each step takes
+        staged.append(b["image"].clone())
+        return step(ts, b, *args)
+
+    train._local_step = recorded_step
+    try:
+        ts, values = train.fit_preprocessed(cfg, _Preprocessed(preprocessed), FIT_STEPS, _asset(), device)
+    finally:
+        train._local_step = step
+    out["preprocessed"] = {"values": values, "state": ts.model.state_dict(), "staged": staged}
+
+    # Sharded int8 serving: the whole request on every rank, qparams from one file.
+    served, consts = _state(sd, cfg, device)
+    qp = quantize.load_qparams(qpath)
+    head, out["int8_rows"] = net.head_from_features, []
+
+    def recorded_head(ief_, consts_, feat, *args):  # the rows this rank serves
+        out["int8_rows"].append(feat.shape[0])
+        return head(ief_, consts_, feat, *args)
+
+    net.head_from_features = recorded_head
+    try:
+        for impl in INT8_IMPLS:
+            with torch.no_grad():
+                out[impl] = quantize.quantized_forward(
+                    qp, served.model.ief, consts, torch.from_numpy(batch["image"]), cfg.model, impl, mesh
+                )
+    finally:
+        net.head_from_features = head
 
     # The 1 x 2 render mesh: rows of every image over the two ranks.
     mesh2 = render_sp.render_mesh(1, 2, device)
@@ -144,6 +204,7 @@ def runs(tiny_asset, tmp_path_factory):
     from indirect_learning_pose_shape_tpu.models import encoder as jenc
     from indirect_learning_pose_shape_tpu.models import ief as jief
     from indirect_learning_pose_shape_tpu.models import network as jnet
+    from indirect_learning_pose_shape_tpu.models import quantize as jquant
     from indirect_learning_pose_shape_tpu.ops import raster as jraster
     from indirect_learning_pose_shape_tpu.parallel import mesh as jmesh
 
@@ -200,9 +261,30 @@ def runs(tiny_asset, tmp_path_factory):
     one["consts"] = consts
     one["sd"] = one_sd
 
+    preprocessed = [
+        {k: train.make_batch(cfg.seed, i, BATCH, consts, cfg)[k].numpy() for k in PREPROCESSED_KEYS}
+        for i in range(FIT_STEPS)
+    ]
+    ts, values = train.fit_preprocessed(cfg, _Preprocessed(preprocessed), FIT_STEPS, _asset(), "cpu")
+    one["preprocessed"] = {"values": values, "state": ts.model.state_dict(), "batches": preprocessed}
+
+    # int8: the port calibrates and writes the file; the reference reads it.
+    served, consts = _state(sd, cfg, "cpu")
+    qpath = str(tmp_path_factory.mktemp("int8") / "q.npz")
+    quantize.save_qparams(qpath, quantize.ptq_quantize(served.model.encoder, tbatch["image"]))
+    jqp = jquant.load_qparams(qpath)
+    for impl in INT8_IMPLS:
+        with torch.no_grad():
+            one[impl] = quantize.quantized_forward(
+                quantize.load_qparams(qpath), served.model.ief, consts, tbatch["image"], cfg.model, impl
+            )
+        ref[impl] = np.asarray(
+            jquant.quantized_forward(jqp, params["ief"], jconsts, batch["image"], jmodel, impl)["kp2d"]
+        )
+
     ranks = mesh_lib.spawn(
         _ranks, 2, backend="gloo", device="cpu",
-        args=(sd, batch, arrays, str(tmp_path_factory.mktemp("ckpt"))),
+        args=(sd, batch, arrays, str(tmp_path_factory.mktemp("ckpt")), preprocessed, qpath),
     )
     return ref, one, ranks, tbatch
 
@@ -286,24 +368,73 @@ def test_stream_batch_is_rows_of_the_global_batch(runs):
         np.testing.assert_allclose(r["stream_total"], one["stream_total"], rtol=1e-4)
 
 
+def _same_run(got: dict, want: dict) -> None:
+    """A multi-rank `fit_*` run against one process's: the last terms (rtol
+    1e-4) and the BN running buffers (1e-4 normalised per leaf). Parameters:
+    Adam moves each by at most lr a step, and the rounding of a gradient
+    near 0 can flip its sign, so each differs by at most 2·lr·steps, and on
+    average by under lr / 100."""
+    lr = _cfg().learning_rate
+    for k, v in want["values"].items():
+        np.testing.assert_allclose(got["values"][k], v, rtol=1e-4, err_msg=k)
+    for k, v in want["state"].items():
+        d = (got["state"][k] - v).abs()
+        if k.endswith((".mean", ".var")):  # statistics of those parameters' activations
+            assert _norm_err(got["state"][k], v) <= 1e-4, k
+        else:
+            assert float(d.max()) <= 2 * lr * FIT_STEPS and float(d.mean()) <= lr / 100, k
+
+
 def test_fit_dataset_two_ranks_equals_one_process(runs):
     """`fit_dataset` with augmentation, 4 steps over 2 ranks (each staging
-    its rows; the augmentation draws the global batch's): the last terms
-    and the BN running buffers (1e-4 normalised per leaf) of one process.
-    Parameters: Adam moves each by at most
-    lr a step, and the rounding of a gradient near 0 can flip its sign, so
-    each differs by at most 2·lr·steps, and on average by under lr / 100."""
+    its rows; the augmentation draws the global batch's) against one
+    process (`_same_run`)."""
     _, one, ranks, _ = runs
-    lr = _cfg().learning_rate
     for r in ranks:
-        for k, v in one["fit"]["values"].items():
-            np.testing.assert_allclose(r["fit"]["values"][k], v, rtol=1e-4, err_msg=k)
-        for k, v in one["fit"]["state"].items():
-            d = (r["fit"]["state"][k] - v).abs()
-            if k.endswith((".mean", ".var")):  # statistics of those parameters' activations
-                assert _norm_err(r["fit"]["state"][k], v) <= 1e-4, k
-            else:
-                assert float(d.max()) <= 2 * lr * FIT_STEPS and float(d.mean()) <= lr / 100, k
+        _same_run(r["fit"], one["fit"])
+
+
+def test_fit_preprocessed_two_ranks_equals_one_process(runs):
+    """`fit_preprocessed`, 4 steps over 2 ranks, against one process
+    (`_same_run`); each rank's steps took its rows of the stream's global
+    batches (a rank on the whole batch would give the same terms: means of
+    equal means, and Adam's update of a doubled gradient)."""
+    _, one, ranks, _ = runs
+    for r, rows in zip(ranks, (slice(0, 2), slice(2, 4))):
+        _same_run(r["preprocessed"], one["preprocessed"])
+        staged = r["preprocessed"]["staged"]
+        assert len(staged) == FIT_STEPS
+        for image, batch in zip(staged, one["preprocessed"]["batches"]):
+            assert torch.equal(image, torch.from_numpy(batch["image"][rows]))
+
+
+@pytest.mark.parametrize("impl", INT8_IMPLS)
+def test_int8_serving_sharded_matches_single(runs, impl):
+    """`quantized_forward` on the 2 x 1 mesh: each rank runs its rows and
+    returns the whole request's outputs, within 1e-5 of the port's one
+    process, and `kp2d`
+    within the reference's 2e-3 of its single-device result on the same
+    qparams file (tests/test_sharding.py)."""
+    ref, one, ranks, _ = runs
+    for r in ranks:
+        assert r["int8_rows"] == [BATCH // 2] * len(INT8_IMPLS)  # each rank served its rows
+        assert set(r[impl]) == set(one[impl])
+        for k, v in one[impl].items():
+            assert r[impl][k].shape == v.shape, k
+            np.testing.assert_allclose(r[impl][k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(r[impl]["kp2d"].numpy(), ref[impl], rtol=2e-3, atol=2e-3)
+
+
+def test_int8_serving_refuses_an_indivisible_batch():
+    """A request the data axis does not divide is refused, naming both
+    sizes, before any collective (a mesh object alone, no process group)."""
+    cfg = _cfg().model
+    model, consts = net.init(_asset(), cfg, device="cpu")
+    qp = quantize.ptq_quantize(model.encoder, torch.zeros(2, SIZE, SIZE, 3))
+    mesh = mesh_lib.Mesh(world=2, rank=0, n_data=2, n_render=1, device=torch.device("cpu"), backend="gloo",
+                         world_group=None, data_group=None, render_group=None)
+    with pytest.raises(ValueError, match=r"global batch 3 not divisible by the data axis \(2\)"):
+        quantize.quantized_forward(qp, model.ief, consts, torch.zeros(3, SIZE, SIZE, 3), cfg, mesh=mesh)
 
 
 def test_resumed_two_rank_run_equals_straight_run(runs):

@@ -12,10 +12,9 @@ import torch
 
 from indirect_learning_pose_shape_tpu.models import smpl as jsmpl
 from indirect_learning_pose_shape_tpu.utils import assets as jassets
-from indirect_learning_pose_shape_tpu.utils import oracle
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda
-from indirect_learning_pose_shape_tpu_torch.utils import assets
+from indirect_learning_pose_shape_tpu_torch.utils import assets, oracle
 
 
 @pytest.fixture(scope="module")
