@@ -36,7 +36,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    padding leaves real rows unchanged (against the images run alone in the
    same bucket and in bucket 1), that both kernels ran during the requests,
    and that the same requests with the plain twins forced agree. Prints the
-   median latency per bucket.
+   median latency per bucket. The Predictor runs its route on the card:
+   each bucket a CUDA graph, captured by `warmup`.
 5. Training: the config4_full step at B=32, 256² (`train.init_state`,
    `train.fused_step`: batch generation with the LBS and raster forward
    kernels, then forward, losses, backward through the raster backward
@@ -54,19 +55,38 @@ Phases, in order; any failed check raises and the script exits non-zero:
    reference's separable formulation in float32 (the yardstick,
    `raster.separable_scores` at 'highest'), with their bound recounted from
    the step's data (`raster_bound`).
-6. Separable raster (the reference's default route) on the same step's
-   slots and cotangent: 'highest' against the exact twin, 'high', 'default'
+6. The compiled paths (`graphs_phase`): `train.compile_fused_step` at
+   config4_full b32, 5 graphed steps (the first the eager warm-up step and
+   the capture, then 4 replays) against 5 eager `fused_step`s from the same
+   state: every step's terms and the final parameters, BN buffers, Adam
+   moments and counts, rates and EMA bitwise, each call's launches exactly
+   the eager step's (2 LBS, 2 raster forward, 1 raster backward a replay),
+   one capture; host wall per step of both routes (20 each, in turns), the
+   capture seconds and the graph pool's bytes. The same, 3 steps each, for
+   config4_mixed and config4_robust with EMA 0.999 (cosine rate, clip,
+   rot6d, shading, the hard raster). `train.compile_train_fns`: 3 graphed
+   batches and graphed steps on them against `make_batch` and
+   `train_step`, bitwise. `train.fit` on the graph route
+   checkpointed, stopped after step 3, resumed from step 2 and captured
+   again, against a straight graphed run: bitwise. NCCL at world 1: the
+   graphed step through the mesh (its all-reduces in the graph) against the
+   graphed no-mesh step, bitwise. The `Predictor`'s bucket graphs at 1, 4,
+   8, 32, 128 (and a padded 3), bf16 and int8c: every output bitwise the
+   eager Predictor's, an earlier request's outputs unchanged by later
+   replays, 1 LBS launch a request, request median and p90 both routes.
+7. Separable raster (the reference's default route) on the training
+   phase's slots and cotangent: 'highest' against the exact twin, 'high', 'default'
    and the bf16 training scores against 'highest'; the bf16 forward and
    forward + backward timed beside the kernels; and the step's loss terms
    with `raster_impl='separable'` against the kernels'.
-7. The config4_mixed recipe at full width (ResNet-34, rot6d, b32, cosine
+8. The config4_mixed recipe at full width (ResNet-34, rot6d, b32, cosine
    warm-up, clip 1.0, the 3D weights, EMA 0.999): after a warm-up, counted
    fused steps (2 LBS, 2 raster forward, 1 raster backward launches each),
    one call of 4 steps (`steps_per_call`), then `evaluate` on 4 x 32 images
    of the model (its own counted launches: 3 LBS and 2 raster forward a
    batch) and of its EMA, and of the model with the plain versions forced,
    which must agree with the kernels' metrics.
-8. The config4_robust recipe at full width (config4_mixed's, on hard
+9. The config4_robust recipe at full width (config4_mixed's, on hard
    z-buffered targets with textured backgrounds, palette jitter, shading
    and occluders; EMA 0.999): the hard raster on the step's bodies against
    the CPU run of the same function and the float64 oracle, timed dense and
@@ -74,12 +94,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    launches each; the hard raster replaces the target render) with one
    step's device time; a checkpoint saved, restored bitwise and timed;
    `train.fit` to step 2 with checkpoints, then resumed to 4 (the restored
-   state bitwise the first run's, the resumed batch bitwise the straight
-   run's, the losses at step 4 within RESUME_TOL of a straight 4-step run);
+   state bitwise the first run's, the resumed run's batch of step 2 (its
+   eager warm-up before the capture) bitwise the stream's `make_batch`,
+   the losses at step 4 within RESUME_TOL of a straight 4-step run);
    the JSONL and TensorBoard files read back; `tools/quality_eval.py` on the
    checkpoint and its EMA on the plain, hard and hardapp suites (3 seeds x 1
    batch), and the kernels against the plain versions on hardapp.
-9. Disk data at full width (config4_full's model, b32, 256² crops from a
+10. Disk data at full width (config4_full's model, b32, 256² crops from a
    dataset at 320²): the native host preprocessor built with g++ and
    loaded (`USE_NATIVE`), bitwise against its numpy versions on 32 ragged
    images; a 128-example dataset written by `make_synthetic_dataset` (its
@@ -97,7 +118,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    against the plain versions on its first batch; the image-directory path
    (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
    line saying which held.
-10. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
+11. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
    16 synthetic images (seed 999), the qparams file read back bitwise, a
    `keep_sites=('stem',)` variant; a `Predictor(qparams)` per impl
    (int8, int8c, sim, simc) at batches 1, 8, 32, 128: each site's int8
@@ -116,7 +137,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    LBS, raster forward and raster backward launch a step; a profiled
    window); `train.init_state` from a pretrained npz and a mean-parameter
    file written in the phase.
-11. Multi-GPU training on the one card (`parallel_phase`, last):
+12. Multi-GPU training on the one card (`parallel_phase`, last):
    config5_data_parallel (ResNet-18, global batch 64, 256²). NCCL at world
    size 1 in this process: step 1 through the mesh against the no-mesh
    step (rtol 1e-6; it reads bitwise), 3 steps each way in turns (host
@@ -146,7 +167,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
-training main path, on the config4_mixed steps and in its evaluation, on
+training main path, per replay of the graphed config4_full step
+(`launches_graph_replay`), on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
 requests and their evaluation (`launches_int8`), in the example
@@ -1219,23 +1241,23 @@ def mixed_phase(asset, smi) -> dict:
     return {"launches": launches, "ms_per_step": med, "eval_launches": eval_launches}
 
 
-def same_state(a, b, devices: bool, where: str = "") -> None:
+def same_state(a, b, devices: bool, where: str = "", what: str = "restored state") -> None:
     """Check two nested state dicts bitwise equal, and each pair of tensors
     on one device when `devices`."""
     if torch.is_tensor(a):
         check(torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
-              and torch.equal(a.cpu(), b.cpu()), f"restored state differs at {where}")
-        check(not devices or a.device == b.device, f"restored state at {where} on {b.device}, not {a.device}")
+              and torch.equal(a.cpu(), b.cpu()), f"{what} differs at {where}")
+        check(not devices or a.device == b.device, f"{what} at {where} on {b.device}, not {a.device}")
     elif isinstance(a, dict):
-        check(isinstance(b, dict) and set(a) == set(b), f"restored state's keys differ at {where}")
+        check(isinstance(b, dict) and set(a) == set(b), f"{what}'s keys differ at {where}")
         for k in a:
-            same_state(a[k], b[k], devices, f"{where}[{k!r}]")
+            same_state(a[k], b[k], devices, f"{where}[{k!r}]", what)
     elif isinstance(a, (list, tuple)):
-        check(len(a) == len(b), f"restored state's lengths differ at {where}")
+        check(len(a) == len(b), f"{what}'s lengths differ at {where}")
         for i, (x, y) in enumerate(zip(a, b)):
-            same_state(x, y, devices, f"{where}[{i}]")
+            same_state(x, y, devices, f"{where}[{i}]", what)
     else:
-        check(a == b, f"restored state differs at {where}: {a!r} != {b!r}")
+        check(a == b, f"{what} differs at {where}: {a!r} != {b!r}")
 
 
 @contextlib.contextmanager
@@ -1259,22 +1281,24 @@ def scaled_init():
 
 
 @contextlib.contextmanager
-def batches_at(step: int, store: list):
-    """Inside the block each batch `train.make_batch` makes for `step` is
-    appended to `store`."""
-    plain = train.make_batch
+def first_drawn_batch(store: list):
+    """Inside the block a copy of the first batch the step draws on the host
+    (`train._draw_batch`) is appended to `store`. On `fit`'s graph route that
+    is the batch of the run's first step, its eager warm-up; the later
+    batches are drawn by graph replays."""
+    plain = train._draw_batch
 
-    def recording(seed, s, *args):
-        batch = plain(seed, s, *args)
-        if s == step:
-            store.append(batch)
+    def recording(*args, **kwargs):
+        batch = plain(*args, **kwargs)
+        if not store:
+            store.append({k: v.clone() for k, v in batch.items()})
         return batch
 
-    train.make_batch = recording
+    train._draw_batch = recording
     try:
         yield
     finally:
-        train.make_batch = plain
+        train._draw_batch = plain
 
 
 def tb_records(path: str) -> int:
@@ -1425,21 +1449,22 @@ def robust_phase(asset, smi) -> dict:
         )
         with scaled_init():
             ts_k, _ = train.fit(split, num_steps=k, asset=asset, device="cuda")
-            fresh, _ = train.init_state(split, asset=asset, device="cuda")
+            fresh, consts = train.init_state(split, asset=asset, device="cuda")
         train.load_state_dict(fresh, Checkpointer(split.checkpoint_dir).restore(map_location="cpu"))
         check(fresh.step == k, f"restored step {fresh.step} != {k}")
         same_state(train.state_dict(ts_k), train.state_dict(fresh), devices=True)
         del fresh, ts_k
-        first_resumed, first_straight = [], []
-        with scaled_init(), batches_at(k, first_resumed):
+        first_resumed = []
+        with scaled_init(), first_drawn_batch(first_resumed):
             ts_r, terms_r = train.fit(split, asset=asset, device="cuda")
-        with scaled_init(), batches_at(k, first_straight):
+        with scaled_init():
             ts_s, terms_s = train.fit(base, asset=asset, device="cuda")
         check(ts_r.step == ts_s.step == 2 * k, f"steps {ts_r.step}, {ts_s.step} != {2 * k}")
-        check(len(first_resumed) == len(first_straight) == 1, "the batch of the resumed step was not made once")
-        (b_r,), (b_s,) = first_resumed, first_straight
+        # The straight run draws step k's batch in a graph replay, which
+        # the graphs phase holds bitwise to make_batch's.
+        (b_r,), b_s = first_resumed, train.make_batch(split.seed, k, split.batch_size, consts, split)
         check(set(b_r) == set(b_s) and all(torch.equal(b_r[key], b_s[key]) for key in b_s),
-              f"the resumed run's batch of step {k} differs from the straight run's")
+              f"the resumed run's batch of step {k} differs from the stream's (make_batch)")
         rel = {t: abs(terms_r[t] - v) / max(abs(v), 1e-6) for t, v in terms_s.items()}
         worst = max(rel, key=rel.get)
         check(set(terms_r) == set(terms_s) and rel[worst] <= RESUME_TOL,
@@ -1447,10 +1472,10 @@ def robust_phase(asset, smi) -> dict:
         print(
             f"[robust] fit to step {k} (checkpoint_every={k}), restored state bitwise equal to the run's "
             f"(parameters, BN statistics, Adam moments and counts, schedule, EMA, step, seed); resumed to "
-            f"{2 * k}: its batch of step {k} bitwise the straight run's; loss terms at step {2 * k} against "
+            f"{2 * k}: its batch of step {k} bitwise the stream's; loss terms at step {2 * k} against "
             f"the straight run's: worst {worst} rel err {rel[worst]:.3e} (tolerance {RESUME_TOL:g})"
         )
-        del ts_r, ts_s, first_resumed, first_straight, b_r, b_s
+        del ts_r, ts_s, first_resumed, b_r, b_s, consts
 
         # --- The metrics files: one line and one event a logged step. --------
         with open(split.metrics_path) as f:
@@ -2605,6 +2630,242 @@ def parallel_phase(asset, smi) -> dict:
             "int8": int8_launches}
 
 
+# --- The compiled paths: CUDA graphs of the step and of the buckets. -------
+
+GRAPH_STEPS = 5  # config4_full: graphed steps (the first the eager warm-up) against eager ones
+GRAPH_RECIPE_STEPS = 3  # config4_mixed, config4_robust
+GRAPH_TIMED = 20  # host wall per step, each route, in turns after the checks
+GRAPH_BUCKETS = (1, 4, 8, 32, 128)
+GRAPH_REQ_TIMED = 20
+GRAPH_RESUME = 4  # the resumed run's budget; it stops at 3 and resumes from the save at 2
+
+
+def run_state(ts) -> dict:
+    """What a step changes: the model's parameters and BN buffers, Adam's
+    moments and counts by parameter name, the rates, the EMA and the step."""
+    names = {id(p): k for k, p in ts.model.named_parameters()}
+    return {
+        "model": {k: v.detach().clone() for k, v in ts.model.state_dict().items()},
+        "adam": {names[id(p)]: {k: v.clone() for k, v in st.items()} for p, st in ts.optimizer.state.items()},
+        "lr": [float(g["lr"]) for g in ts.optimizer.param_groups],
+        "ema": None if ts.ema is None else {k: v.clone() for k, v in ts.ema.items()},
+        "step": ts.step,
+    }
+
+
+def wall_stats(times: list) -> str:
+    return f"median {statistics.median(times):.3f} ms, p90 {float(np.percentile(times, 90)):.3f} ms"
+
+
+def graphed_steps(name, cfg, asset, steps: int, smi, timed: int = 0) -> dict:
+    """`steps` calls of `compile_fused_step` (the first one the eager
+    warm-up step and the capture, the rest replays) against as many eager
+    `fused_step` calls from the same state: every step's terms and the
+    final state (parameters, BN buffers, Adam's moments and counts, rates,
+    EMA) bitwise, and each call's launches exactly the eager step's. With
+    `timed`, host wall per step of both routes in turns."""
+    ts_g, consts = scaled_state(cfg, asset, "cuda")
+    ts_e, _ = scaled_state(cfg, asset, "cuda")
+    same_state(run_state(ts_g), run_state(ts_e), True, name, "initial state")
+    per = PER_STEP_ROBUST if cfg.synthetic.targets == "hard" else PER_STEP
+    fn = train.compile_fused_step(cfg, consts)
+    launches = []
+    for i in range(steps):
+        _build.reset_counts()
+        tg = fn(ts_g)
+        torch.cuda.synchronize()
+        launches.append(_build.counts())
+        te = train.fused_step(ts_e, consts, cfg)
+        same_state(te, tg, True, f"{name} step {i} terms", "graphed step")
+        check(launches[-1] == per,
+              f"{name}: graphed call {i} launched {launches[-1]}, the eager step {per}")
+    same_state(run_state(ts_e), run_state(ts_g), True, name, "graphed run's state")
+    check(fn.captures == 1, f"{name}: {fn.captures} captures in {steps} calls")
+    out = {"capture_s": fn.graph.seconds, "pool_bytes": fn.graph.pool_bytes, "per_replay": launches[-1]}
+    msg = (
+        f"[graphs] {name} B={cfg.batch_size}: {steps} graphed steps (1 eager warm-up + capture, "
+        f"{steps - 1} replays) equal {steps} eager steps bitwise (terms each step; parameters, BN "
+        f"buffers, Adam moments and counts, rates{', EMA' if ts_e.ema is not None else ''}); capture "
+        f"{fn.graph.seconds:.3f} s, pool {fn.graph.pool_bytes / 2**20:.1f} MiB; launches per replay "
+        f"{launches[-1]}"
+    )
+    if timed:
+        runs = {"eager": [], "graph": []}
+        for route in ("eager", "graph", "graph", "eager"):
+            for _ in range(timed // 2):
+                t0 = time.perf_counter()
+                if route == "graph":
+                    fn(ts_g)
+                else:
+                    train.fused_step(ts_e, consts, cfg)
+                torch.cuda.synchronize()
+                runs[route].append((time.perf_counter() - t0) * 1e3)
+        out.update({f"{r}_ms": statistics.median(t) for r, t in runs.items()})
+        out.update({f"{r}_p90_ms": float(np.percentile(t, 90)) for r, t in runs.items()})
+        msg += (
+            f"; host wall per step over {timed} steps each, in turns: eager {wall_stats(runs['eager'])}, "
+            f"graph {wall_stats(runs['graph'])}"
+        )
+    print(f"{msg} [{smi}]")
+    return out
+
+
+def graphed_train_fns(asset, smi) -> None:
+    """`compile_train_fns` at config4_full: `gen_fn`'s batches bitwise
+    `make_batch`'s, and `step_fn` on them (the first call the eager warm-up
+    step and the capture) bitwise `train_step`, terms and final state."""
+    cfg = configs.CONFIG4_FULL
+    ts_g, consts = scaled_state(cfg, asset, "cuda")
+    ts_e, _ = scaled_state(cfg, asset, "cuda")
+    gen_fn, step_fn = train.compile_train_fns(cfg, consts)
+    for step in range(3):
+        batch = gen_fn(cfg.seed, step)
+        want = train.make_batch(cfg.seed, step, cfg.batch_size, consts, cfg)
+        same_state(want, batch, True, f"batch {step}", "graphed gen_fn")
+        same_state(train.train_step(ts_e, want, consts, cfg), step_fn(ts_g, batch), True,
+                   f"step {step} terms", "graphed step_fn")
+    same_state(run_state(ts_e), run_state(ts_g), True, "state", "graphed step_fn run")
+    check(step_fn.captures == 1, f"compile_train_fns: {step_fn.captures} captures of step_fn")
+    print(
+        f"[graphs] compile_train_fns config4_full: 3 graphed batches equal make_batch's and 3 graphed "
+        f"train steps on them equal train_step's, bitwise (terms, state) [{smi}]"
+    )
+
+
+class _Stop(Exception):
+    """Stops a `fit` run after a checkpoint, as a crash would."""
+
+
+def graphed_resume(asset, smi) -> None:
+    """`fit` (the graph route on the card) checkpointed every 2 steps and
+    stopped after step 3, then resumed from the save at 2 and captured
+    anew, against a straight run to the same budget: the states and the
+    last terms bitwise. config4_full with a cosine rate (warm-up 1) and an
+    EMA, so the restored rate tensor and the schedule are on the path."""
+    base = dataclasses.replace(
+        configs.CONFIG4_FULL, lr_schedule="cosine", warmup_steps=1, num_steps=GRAPH_RESUME,
+        ema_decay=0.999, log_every=1,
+    )
+
+    def stop_at(step):
+        def log(rec):
+            if rec["step"] == step:
+                raise _Stop()
+        return log
+
+    with tempfile.TemporaryDirectory(prefix="ilps_graphs_") as work, scaled_init():
+        cfg = dataclasses.replace(base, checkpoint_every=2, checkpoint_dir=os.path.join(work, "ck"))
+        try:
+            train.fit(cfg, asset=asset, log=stop_at(2))
+        except _Stop:
+            pass
+        check(Checkpointer(cfg.checkpoint_dir).latest_step() == 2, "graphed fit: no checkpoint at step 2")
+        resumed, terms_r = train.fit(cfg, asset=asset)
+        straight, terms_s = train.fit(base, asset=asset)
+    same_state(run_state(straight), run_state(resumed), True, "resume", "resumed graphed run")
+    check(terms_r == terms_s, f"graphed fit: resumed terms {terms_r} != straight {terms_s}")
+    print(
+        f"[graphs] fit (graph route) config4_full cosine + EMA: checkpointed at 2, stopped after 3, "
+        f"resumed and captured again to {GRAPH_RESUME}: state and last terms bitwise the straight "
+        f"graphed run's (total {terms_s['total']:.6f}) [{smi}]"
+    )
+
+
+def graphed_nccl(asset, smi) -> None:
+    """NCCL at world size 1 in this process: `compile_fused_step` under the
+    mesh (the graph records the collectives) against the graphed step with
+    no mesh, 3 steps each, terms and state bitwise."""
+    cfg = configs.CONFIG4_FULL
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(None, "cuda")
+            ts_m, consts = scaled_state(cfg, asset, "cuda")
+            ts_p, _ = scaled_state(cfg, asset, "cuda")
+            fn_m = train.compile_fused_step(cfg, consts, mesh)
+            fn_p = train.compile_fused_step(cfg, consts)
+            for i in range(3):
+                same_state(fn_p(ts_p), fn_m(ts_m), True, f"step {i} terms", "NCCL world 1 graphed step")
+            same_state(run_state(ts_p), run_state(ts_m), True, "state", "NCCL world 1 graphed run")
+            check(fn_m.captures == 1, f"NCCL world 1: {fn_m.captures} captures")
+            print(
+                f"[graphs] NCCL world 1: 3 graphed steps through the mesh (the all-reduces in the graph) "
+                f"equal the graphed no-mesh steps bitwise; capture {fn_m.graph.seconds:.3f} s [{smi}]"
+            )
+        finally:
+            dist.destroy_process_group()
+
+
+def graphed_requests(label, make, cfg, rng, smi) -> dict:
+    """A graphed and an eager `Predictor` (`make(graphs=...)`) on the same
+    requests: bucket b's request of b images, and a request of 3 after one
+    of 4 (the padding row zeroed), all outputs bitwise; an earlier
+    request's outputs unchanged by later replays; 1 LBS and no raster
+    launch a request; request median and p90 per bucket, both routes."""
+    size = cfg.image_size
+    p_g, p_e = make(graphs=True), make(graphs=False)
+    p_g.warmup(GRAPH_BUCKETS)
+    p_e.warmup(GRAPH_BUCKETS)
+    reqs = {b: rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32) for b in GRAPH_BUCKETS}
+    reqs[3] = rng.uniform(-1, 1, (3, size, size, 3)).astype(np.float32)
+    _build.reset_counts()
+    first = p_g(reqs[1])
+    kept = {k: v.clone() for k, v in first.items()}
+    outs = {n: p_g(x) for n, x in reqs.items()}  # 3 after 4: padding zeroed over the 4th image
+    torch.cuda.synchronize()
+    launches = _build.counts()
+    check(launches == {lbs_cuda.KERNEL: len(reqs) + 1},
+          f"{label}: {len(reqs) + 1} graphed requests launched {launches}")
+    for n, x in reqs.items():
+        same_state(p_e(x), outs[n], True, f"request {n}", f"{label} graphed request")
+    same_state(kept, first, True, "request 1", f"{label} earlier request's outputs after later replays")
+    times = {}
+    for n in GRAPH_BUCKETS:
+        x = reqs[n]
+        for route, p in (("eager", p_e), ("graph", p_g), ("graph", p_g), ("eager", p_e)):
+            got = times.setdefault((route, n), [])
+            for _ in range(GRAPH_REQ_TIMED // 2):
+                t0 = time.perf_counter()
+                p(x)
+                torch.cuda.synchronize()
+                got.append((time.perf_counter() - t0) * 1e3)
+    for n in GRAPH_BUCKETS:
+        g = p_g.bucket_graph(n)
+        print(
+            f"[graphs] {label} request batch {n}: eager {wall_stats(times[('eager', n)])}, graph "
+            f"{wall_stats(times[('graph', n)])} (host wall from numpy images, forward only); capture "
+            f"{g.seconds:.3f} s, pool +{g.pool_bytes / 2**20:.1f} MiB [{smi}]"
+        )
+    print(
+        f"[graphs] {label}: graphed requests at buckets {GRAPH_BUCKETS} and a padded 3 equal the eager "
+        f"Predictor's bitwise (every output); an earlier request's outputs survive later replays; "
+        f"launches in {len(reqs) + 1} requests {launches}"
+    )
+    return {n: {r: statistics.median(times[(r, n)]) for r in ("eager", "graph")} for n in GRAPH_BUCKETS}
+
+
+def graphs_phase(cfg, model, consts, asset, rng, smi) -> dict:
+    """The compiled paths (`train.compile_fused_step`, `fit`'s graph route,
+    `serve.Predictor`'s bucket graphs) against the eager ones they record."""
+    t0 = time.perf_counter()
+    full = graphed_steps("config4_full", configs.CONFIG4_FULL, asset, GRAPH_STEPS, smi, timed=GRAPH_TIMED)
+    for name, preset in (("config4_mixed", configs.CONFIG4_MIXED), ("config4_robust", configs.CONFIG4_ROBUST)):
+        graphed_steps(name, dataclasses.replace(preset, ema_decay=0.999), asset, GRAPH_RECIPE_STEPS, smi)
+    graphed_train_fns(asset, smi)
+    graphed_resume(asset, smi)
+    graphed_nccl(asset, smi)
+    from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+
+    calib = predict.synthetic_images(consts, cfg, 16, seed=999)
+    qp = quant.ptq_quantize(model.encoder, calib)
+    graphed_requests("bf16", lambda graphs: serve.Predictor(cfg, model, consts, graphs=graphs), cfg, rng, smi)
+    graphed_requests(
+        "int8c", lambda graphs: serve.Predictor(cfg, model, consts, qparams=qp, graphs=graphs), cfg, rng, smi,
+    )
+    print(f"[graphs] phase in {time.perf_counter() - t0:.1f} s")
+    return full
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2642,6 +2903,7 @@ def main() -> int:
     bwd4 = raster_bwd_phase(consts, cfg, verts2d, far, rng)
     serve_launches = serving_phase(cfg, model, consts, rng, smi)
     tr = training_phase(asset, smi)
+    graphed = graphs_phase(cfg, model, consts, asset, rng, smi)
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
     disk = disk_phase(asset, smi)
@@ -2654,6 +2916,7 @@ def main() -> int:
             source=f"indirect_learning_pose_shape_tpu_torch/csrc/{source}",
             replaces=f"indirect_learning_pose_shape_tpu/ops/kernels/{replaces}",
             launches=tr["launches"].get(name, 0),
+            launches_graph_replay=graphed["per_replay"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),

@@ -29,6 +29,7 @@ and gathers the image's rows over the render group for the encoder.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -169,6 +170,19 @@ def part_palette(num_channels: int) -> np.ndarray:
     return _PALETTE[:num_channels].copy()
 
 
+# The stream's constants on a device, made once per device and never
+# written: a batch made on the card then copies nothing from the host, which
+# is what lets a CUDA graph record it.
+@functools.cache
+def _device_palette(device: torch.device, num_channels: int) -> torch.Tensor:
+    return torch.as_tensor(part_palette(num_channels), device=device)
+
+
+@functools.cache
+def _device_light(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_LIGHT, device=device)
+
+
 def sample_draws(
     gen: torch.Generator,
     batch: int,
@@ -222,7 +236,7 @@ def sample_draws(
     elif cfg.bg_mode == "noise":
         draws["bg_noise"] = uniform(batch, S, S, 3)
     if cfg.shading:
-        draws["light"] = torch.tensor(_LIGHT, device=dev) + 0.6 * normal(batch, 3)
+        draws["light"] = _device_light(dev) + 0.6 * normal(batch, 3)
     if cfg.occluders:
         occ = [
             (S * uniform(batch, 2),
@@ -318,7 +332,7 @@ def render_batch(
     verts2d = camera.project_pixel(smpl_out["verts"], cam, size)
     kp2d = camera.project_pixel(smpl_out["kp3d"], cam, size)
 
-    palette = torch.as_tensor(part_palette(model_cfg.raster.num_parts + 1), device=pose.device)
+    palette = _device_palette(pose.device, model_cfg.raster.num_parts + 1)
     if cfg.color_jitter:
         palette = torch.clamp(palette + draws["pal_noise"], 0.0, 1.0)  # [B, C+1, 3]
     else:
@@ -334,7 +348,7 @@ def render_batch(
         hr = raster_hard.hard_raster(
             verts2d, smpl_out["verts"][..., 2], consts.hard, size,
             k_faces=cfg.hard_k_faces or None, with_shade=cfg.shading > 0,
-            light=draws["light"] if cfg.shading else _LIGHT, rows=rows,
+            light=draws["light"] if cfg.shading else None, rows=rows,
         )
         part_labels, silhouette = hr["part_labels"], hr["silhouette"]
         if cfg.hard_k_faces:

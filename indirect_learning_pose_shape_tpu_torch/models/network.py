@@ -40,12 +40,16 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConsts:
-    """Non-trainable constants: SMPL tensors, the class-sorted part layout
-    and the face topology of the hard (z-buffered) target renderer."""
+    """Non-trainable constants: SMPL tensors, the class-sorted part layout,
+    the face topology of the hard (z-buffered) target renderer, and
+    `identity6` [J*6] float32, the rot6d of the identity rotation at every
+    joint (the origin of the rot6d pose prior), made once here so that the
+    forward copies nothing from the host."""
 
     smpl: smpl_mod.SMPLConsts
     part_layout: raster.PartLayout
     hard: raster_hard.HardConsts
+    identity6: torch.Tensor
 
 
 class Model(nn.Module):
@@ -61,14 +65,17 @@ def build_consts(
     asset: SMPLAsset, cfg: ModelConfig, device: torch.device | str = "cpu"
 ) -> ModelConsts:
     vlabels = np.minimum(asset.part_labels(), cfg.raster.num_parts - 1)
+    smpl = smpl_mod.smpl_consts(asset, device=device)
+    identity6 = torch.tensor([1, 0, 0, 0, 1, 0], dtype=torch.float32, device=device)
     return ModelConsts(
-        smpl=smpl_mod.smpl_consts(asset, device=device),
+        smpl=smpl,
         part_layout=raster.build_part_layout(
             vlabels, cfg.raster.num_parts, positions=asset.v_template, device=device
         ),
         # The soft layout's vertex classes, so hard and soft targets share
         # one label space.
         hard=raster_hard.build_hard_consts(asset.faces, vlabels, device=device),
+        identity6=identity6.repeat(smpl.num_joints),
     )
 
 
@@ -139,8 +146,7 @@ def head_from_features(
     J = consts.smpl.num_joints
     if cfg.ief.rotation_format == "rot6d":
         rotmats = smpl_mod.rot6d_to_rotmat(pose.reshape(B, J, 6))
-        identity6 = torch.tensor([1, 0, 0, 0, 1, 0], dtype=pose.dtype, device=pose.device)
-        pose_prior = (pose - identity6.repeat(J))[:, 6:]
+        pose_prior = (pose - consts.identity6.to(pose.dtype))[:, 6:]
     else:
         rotmats = smpl_mod.batch_rodrigues(pose.reshape(B, J, 3))
         pose_prior = pose[:, 3:]

@@ -22,7 +22,10 @@ There is no fallback: without ``nvcc``, or when the build fails, this raises.
 
 Launch counters: each kernel wrapper calls :func:`count` exactly where it
 launches its kernel, so a run can show which kernels the main path went
-through (``reset_counts`` / ``counts``).
+through (``reset_counts`` / ``counts``). Under a CUDA graph the card runs a
+kernel on every replay and the wrapper runs once, at capture:
+``utils/graphs.py`` takes the capture's counts back (``set_counts``) and
+adds them on each replay, so the counts stay the launches the card ran.
 """
 
 from __future__ import annotations
@@ -50,9 +53,10 @@ _entries: dict[str, ctypes._CFuncPtr] = {}
 _counts: dict[str, int] = {}
 
 
-def count(name: str) -> None:
-    """Add one launch of kernel `name` (called by the wrappers only)."""
-    _counts[name] = _counts.get(name, 0) + 1
+def count(name: str, n: int = 1) -> None:
+    """Add `n` launches of kernel `name` (the wrappers add one where they
+    launch; a graph's replay adds what its capture recorded)."""
+    _counts[name] = _counts.get(name, 0) + n
 
 
 def counts() -> dict[str, int]:
@@ -61,6 +65,12 @@ def counts() -> dict[str, int]:
 
 def reset_counts() -> None:
     _counts.clear()
+
+
+def set_counts(saved: dict[str, int]) -> None:
+    """Put the counts back to `saved` (a `counts()` taken earlier)."""
+    _counts.clear()
+    _counts.update(saved)
 
 
 def _nvcc() -> str:

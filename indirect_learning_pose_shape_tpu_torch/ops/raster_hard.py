@@ -131,7 +131,8 @@ def hard_raster(
     `k_faces` bounds the faces per tile (None: every face in every tile,
     exact). A tile that overlaps more faces than that drops the excess and
     counts it in `overflow`; a caller that sets k_faces checks overflow is 0.
-    `light` is one direction [3] or one per image [B, 3].
+    `light` is one direction [3] or one per image [B, 3], read only with
+    `with_shade`.
 
     Returns part_labels [B, S, S] int32 (0 background, class c → c + 1),
     silhouette [B, S, S] float32 {0, 1}, zbuf [B, S, S] float32 (-3e38 where
@@ -153,7 +154,8 @@ def hard_raster(
     dev = verts2d.device
     verts2d = verts2d.detach().float()
     verts_z = verts_z.detach().float()
-    light = torch.as_tensor(light, dtype=torch.float32, device=dev)
+    if with_shade:  # a tensor on the card copies nothing from the host
+        light = torch.as_tensor(light, dtype=torch.float32, device=dev)
     B, F = verts2d.shape[0], hc.faces.shape[0]
     nt = tb * T
 
@@ -191,8 +193,9 @@ def hard_raster(
 
     # A dead slot (degenerate, culled out or padding) gets w0 = -1 everywhere,
     # so it is never inside: the reference's `live` mask, folded in.
-    dead = torch.zeros(13, device=dev)
-    dead[2] = -1.0
+    # Made on the device: an indexed store of a Python number would copy it
+    # from the host.
+    dead = torch.where(torch.arange(13, device=dev) == 2, -1.0, 0.0)
     slot_coeffs = torch.where(slot_live[..., None], slot_coeffs, dead)
     npad = -slot_coeffs.shape[2] % chunk
     if npad:

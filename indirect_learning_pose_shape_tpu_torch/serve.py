@@ -1,9 +1,20 @@
 """Serving runtime: bucketed-batch inference (port of serve.py).
 
 Requests of any batch size are padded up to the next of a small set of
-bucket sizes, run, and sliced back. On the card this keeps the set of
-shapes cuDNN and the kernels see small and fixed, so `warmup` can pay every
-first-call cost (cuDNN algorithm choice, kernel build) before traffic.
+bucket sizes, run, and sliced back. On the card each bucket is one CUDA
+graph of the forward, the counterpart of the reference's one jit entry per
+bucket: `warmup` captures the chosen buckets before traffic (after an eager
+call that pays every first-call cost: cuDNN algorithm choice, kernel
+build), and a bucket never warmed is captured at its first request, as
+`jax.jit` compiles at the first call. A request copies its images into the
+bucket's input buffer (zeros past the request), replays the graph and
+returns clones of its rows of the outputs, so an earlier request's outputs
+never change when a later one replays. The buckets' graphs share one memory
+pool: they replay one at a time, and each request's outputs are copied out
+before the next replay, so a Predictor serves one request at a time (one
+dispatcher thread, as the reference's). `graphs=False` runs the eager
+forward on the card, for comparison; on the CPU the forward is always
+eager.
 
     predictor = Predictor(cfg, model, consts)               # bf16 eval forward
     predictor = Predictor(cfg, model, consts, qparams=qp)   # int8 encoder
@@ -30,6 +41,7 @@ import torch
 
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
+from indirect_learning_pose_shape_tpu_torch.utils import graphs as graphs_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -46,6 +58,7 @@ class Predictor:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         qparams: Optional[dict] = None,
         int8_impl: str = "int8c",
+        graphs: bool = True,
     ):
         if not buckets or any(int(b) <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets!r}")
@@ -61,6 +74,9 @@ class Predictor:
         self.qenc = (
             None if qparams is None else quant.as_encoder(qparams, cfg.encoder, self.device)
         )
+        self.graphs = graphs and self.device.type == "cuda"
+        self._pool = None  # the buckets' shared graph memory pool, made at the first capture
+        self._bucket_graphs: dict[int, tuple[torch.Tensor, graphs_lib.Graph]] = {}
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -79,12 +95,33 @@ class Predictor:
                 self.qenc, self.model.ief, self.consts, images, self.cfg, self.int8_impl
             )
 
+    def _graph(self, b: int) -> tuple[torch.Tensor, graphs_lib.Graph]:
+        """Bucket `b`'s input buffer and graph, captured on first use."""
+        if b not in self._bucket_graphs:
+            size = self.cfg.image_size
+            static = torch.zeros((b, size, size, 3), device=self.device)
+            graphs_lib.warm_up(lambda: self._run(static), self.device)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = graphs_lib.capture(lambda: self._run(static), self.device, pool=self._pool)
+            self._bucket_graphs[b] = (static, graph)
+        return self._bucket_graphs[b]
+
+    def bucket_graph(self, b: int) -> Optional[graphs_lib.Graph]:
+        """Bucket `b`'s graph, None before its capture or without graphs (its
+        `seconds` and `pool_bytes` say what the capture cost)."""
+        return self._bucket_graphs[b][1] if b in self._bucket_graphs else None
+
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run every chosen bucket (all by default) once before traffic."""
+        """Capture every chosen bucket (all by default) before traffic; with
+        eager forwards, run each once."""
         size = self.cfg.image_size
         for b in buckets or self.buckets:
             n = self.bucket_for(b)
-            self._run(torch.zeros((n, size, size, 3), device=self.device))
+            if self.graphs:
+                self._graph(n)
+            else:
+                self._run(torch.zeros((n, size, size, 3), device=self.device))
 
     def __call__(self, images) -> dict:
         """images [N, S, S, 3] float32 in [-1, 1], any N within the buckets."""
@@ -93,6 +130,11 @@ class Predictor:
         images = images.to(self.device, torch.float32)
         n = images.shape[0]
         b = self.bucket_for(n)
+        if self.graphs:
+            static, graph = self._graph(b)
+            static[:n].copy_(images)
+            static[n:].zero_()
+            return {k: v[:n].clone() for k, v in graph.replay().items()}
         if b != n:
             pad = images.new_zeros((b - n,) + tuple(images.shape[1:]))
             images = torch.cat([images, pad])

@@ -2,18 +2,26 @@
 
     python -m indirect_learning_pose_shape_tpu_torch.tools.profile_serve \\
         [--preset config4_full] [--buckets 1 4 8 32 128] [--int8-impl int8c] \\
-        [--out profile_serve.json]
+        [--eager] [--out profile_serve.json]
 
 Builds a `serve.Predictor` on the preset at full width with seed-0 weights
 (the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the bodies
 stay in frame and the raster kernel renders real silhouettes), with
 `--int8-impl` its int8 encoder (models/quantize.py, calibrated on 16
-images of the preset's synthetic stream at seed 999), warms every bucket up, and for each bucket sends requests of exactly that batch from
+images of the preset's synthetic stream at seed 999), warms every bucket up
+(on the card the Predictor's route: each bucket captured as a CUDA graph;
+`--eager`: `Predictor(graphs=False)`, the eager forward, for comparison),
+and for each bucket sends requests of exactly that batch from
 host numpy images, one at a time (closed loop, one client). A request is
 `Predictor.__call__` + `predict.render_silhouette`, ended by a synchronize.
 
 Per bucket it reports:
 
+- on the graph route, `capture_s`, the host seconds of the bucket's
+  capture alone (`utils/graphs.Graph.seconds`; the eager warm-up call before
+  it is not in it), and `pool_bytes`, the bytes it added to the buckets'
+  shared memory pool (`torch.cuda.memory_reserved` after the capture minus
+  before it, the cache emptied first);
 - `request_ms_median` / `request_ms_p90`, `forward_ms_median`: host wall
   over `--timed` requests (forward only = without the silhouette);
 - from `torch.profiler` over `--profiled` more requests, per request:
@@ -150,6 +158,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profiled", type=int, default=10)
     ap.add_argument("--int8-impl", default=None, choices=["int8", "int8c", "sim", "simc"],
                     help="serve the int8 encoder under this impl (default: the bf16 encoder)")
+    ap.add_argument("--eager", action="store_true",
+                    help="serve the eager forward instead of the buckets' CUDA graphs")
     ap.add_argument("--out", default="profile_serve.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -170,16 +180,24 @@ def main(argv=None) -> int:
         from indirect_learning_pose_shape_tpu_torch import evaluate
 
         qparams = evaluate.int8_qparams(model, consts, tcfg)
-    p = serve.Predictor(cfg, model, consts, qparams=qparams, int8_impl=args.int8_impl or "int8c")
+    p = serve.Predictor(
+        cfg, model, consts, qparams=qparams, int8_impl=args.int8_impl or "int8c", graphs=not args.eager
+    )
     p.warmup(args.buckets)
     rng = np.random.RandomState(0)
     size = cfg.image_size
-    result = {"device": smi, "preset": args.preset, "int8_impl": args.int8_impl, "buckets": {}}
+    result = {
+        "device": smi, "preset": args.preset, "int8_impl": args.int8_impl,
+        "route": "graph" if p.graphs else "eager", "buckets": {},
+    }
     for b in args.buckets:
         images = rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32)
-        result["buckets"][str(b)] = profile_bucket(
+        row = result["buckets"][str(b)] = profile_bucket(
             p, cfg, consts, images, args.timed, args.profiled
         )
+        graph = p.bucket_graph(p.bucket_for(b))
+        if graph is not None:
+            row.update(capture_s=graph.seconds, pool_bytes=graph.pool_bytes)
     text = json.dumps(result, indent=1)
     with open(args.out, "w") as f:
         f.write(text)

@@ -2,7 +2,7 @@
 
     python -m indirect_learning_pose_shape_tpu_torch.tools.profile_train \\
         [--preset config4_full] [--batch-size 32] [--dataset D.npz [--augment]] \\
-        [--out profile_train.json]
+        [--eager] [--out profile_train.json]
 
 Builds the training state of the preset (any of `configs.PRESETS`, e.g.
 config4_mixed: ResNet-34, rot6d, clipping, the 3D targets; config4_robust:
@@ -10,8 +10,16 @@ the same on hard targets with appearance randomisation) at full width
 with seed-0 weights
 (the IEF output layer scaled by 0.01, as in `chip_smoke.py`, so the
 predicted bodies stay in frame and the raster kernels see real work), runs
-`--warmup` fused steps (`train.fused_step`: batch generation + update), then:
+`--warmup` fused steps (batch generation + update) on the route `train.fit`
+takes on the card, `train.compile_fused_step`: one CUDA graph of the step,
+captured at the first call after an eager warm-up step and replayed once a
+step (`--eager`: the eager `train.fused_step`, for comparison), then:
 
+- `route` ("graph" or "eager"); on the graph route `capture_s`, the host
+  seconds of the capture alone (`utils/graphs.Graph.seconds`: the eager
+  warm-up step before it is not in it), and `pool_bytes`, the bytes the
+  capture reserved for the graph's memory pool (`torch.cuda.memory_reserved`
+  after the capture minus before it, the cache emptied first);
 - `step_ms_median` / `step_ms_p90` and `images_per_s` (batch / median):
   host wall of `--timed` steps, each ended by a synchronize;
 - from `torch.profiler` over `--profiled` more steps, per step: `device_ms`
@@ -31,7 +39,8 @@ predicted bodies stay in frame and the raster kernels see real work), runs
 
 With `--dataset` (an .npz file or a directory of shards) the step is the
 disk step instead (`train.data_train_step` on batches that
-`prefetch_to_device` stages from the dataset, as `train.fit_dataset` does;
+`prefetch_to_device` stages from the dataset, as `train.fit_dataset` does,
+eager as `fit_dataset` runs it;
 `--augment` turns on the preset's mirror and crop jitter), and the result
 adds `h2d_ms_per_batch` (the side stream's copies, between CUDA events),
 `prefetch_wait_ms` (the host's median wait for a batch) and
@@ -45,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import sys
@@ -89,6 +99,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profiled", type=int, default=5)
     ap.add_argument("--dataset", default=None, help="time the disk step on this dataset (.npz or shards)")
     ap.add_argument("--augment", action="store_true", help="with --dataset: mirror and crop jitter")
+    ap.add_argument("--eager", action="store_true",
+                    help="time the eager fused_step instead of fit's CUDA graph route")
     ap.add_argument("--out", default="profile_train.json")
     args = ap.parse_args(argv)
     if args.augment and not args.dataset:
@@ -123,9 +135,11 @@ def main(argv=None) -> int:
 
         def step():
             return train.data_train_step(ts, next(batches), consts, cfg)
-    else:
+    elif args.eager:
         def step():
             return train.fused_step(ts, consts, cfg)
+    else:
+        step = functools.partial(train.compile_fused_step(cfg, consts), ts)
 
     for _ in range(args.warmup):
         step()
@@ -148,6 +162,7 @@ def main(argv=None) -> int:
         "device": smi_line(),
         "preset": args.preset,
         "batch_size": cfg.batch_size,
+        "route": "eager" if args.dataset or args.eager else "graph",
         "step_ms_median": median,
         "step_ms_p90": float(np.percentile(times, 90)),
         "images_per_s": cfg.batch_size / median * 1e3,
@@ -160,6 +175,8 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if isinstance(step, functools.partial):
+        result.update(capture_s=step.func.graph.seconds, pool_bytes=step.func.graph.pool_bytes)
     if args.dataset:
         torch.cuda.synchronize()
         result["dataset"] = args.dataset

@@ -47,8 +47,19 @@ optax's), at the learning rate of `lr_schedule` ('constant', or 'cosine':
 warmup_steps + 1))`, evaluated at the update count before it is
 incremented, so the first update has learning rate 0), then the EMA of the
 parameters (`ema_decay` > 0). `steps_per_call` fused steps go in one
-`fused_step` call, each with its own step's batch; in eager PyTorch that
-only sets how often `fit` logs, and the disk paths refuse it.
+call, each with its own step's batch; it sets how often `fit` logs and
+hands the host back, and the disk paths refuse it.
+
+The compiled step (the reference's `compile_fused_step`, and
+`compile_train_fns`): on the card the fused step is one CUDA graph, captured
+after a real first step that serves as its warm-up and replayed once a step
+(`utils/graphs.py`), equal to the eager `fused_step` bitwise. The optimizer
+is capturable there and reads its rate from a tensor on the card that the
+schedule fills between replays; the batch's draws come from one generator
+registered with the graph and reseeded by (seed, step) before each replay.
+`fit` runs the graph on the card, alone or on an NCCL mesh, and the eager
+`fused_step` on the CPU, on gloo meshes and under `--debug-nans`; its first
+log line (stderr) names the route. The disk paths stay eager.
 
 Several GPUs (`config5_data_parallel`; `num_devices`, `render_devices`):
 every rank runs this module on its rows of the global batch, over a mesh of
@@ -67,7 +78,7 @@ restores. Launch with
 
 (NCCL, one card a rank; `--device cpu` runs gloo ranks on the CPU).
 
-Eager PyTorch: no `torch.compile`. TF32 is off, so float32 products (the
+No `torch.compile`. TF32 is off, so float32 products (the
 geometry, IEF) run in IEEE float32 as the reference's HIGHEST precision.
 """
 
@@ -99,6 +110,7 @@ from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
+from indirect_learning_pose_shape_tpu_torch.utils import graphs
 from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
@@ -131,21 +143,45 @@ def lr_factor(count: int, cfg: configs.TrainConfig) -> float:
 
 def make_optimizer(model: net.Model, cfg: configs.TrainConfig) -> torch.optim.Optimizer:
     """optax.adam's b1=0.9, b2=0.999, eps=1e-8; AdamW with decoupled decay
-    on every parameter when `weight_decay` > 0."""
-    kw = dict(lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+    on every parameter when `weight_decay` > 0. On the card the optimizer is
+    capturable (its step counts live on the card), so a CUDA graph can
+    record its update; `new_state` then gives it its rate as a tensor on the
+    card (`bind_lr`)."""
+    cuda = next(model.parameters()).device.type == "cuda"
+    kw = dict(lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8, foreach=True, capturable=cuda)
     if cfg.weight_decay:
         return torch.optim.AdamW(model.parameters(), weight_decay=cfg.weight_decay, **kw)
     return torch.optim.Adam(model.parameters(), **kw)
 
 
+def bind_lr(opt: torch.optim.Optimizer) -> None:
+    """Each parameter group's learning rate where its update reads it. On
+    the card: a float32 tensor there, which the schedule fills in place
+    before each update, so a CUDA graph of the update reads the rate of its
+    own step (a number would be frozen into the graph at capture), and the
+    group capturable. On the CPU: a number, and not capturable. Loading an
+    optimizer state replaces the groups, so `load_state_dict` binds again."""
+    for group in opt.param_groups:
+        dev = group["params"][0].device
+        group["capturable"] = dev.type == "cuda"
+        lr = group["lr"]
+        if group["capturable"] and not torch.is_tensor(lr):
+            group["lr"] = torch.tensor(lr, dtype=torch.float32, device=dev)
+        elif not group["capturable"] and torch.is_tensor(lr):
+            group["lr"] = float(lr)
+
+
 def new_state(model: net.Model, cfg: configs.TrainConfig, seed: int = 0) -> TrainState:
     """A state at step 0 around `model`: optimizer, the schedule (a LambdaLR
     of `lr_factor`, stepped after each update) and an EMA that starts as a
-    copy of the parameters."""
+    copy of the parameters. The schedule is built on the rate as a number,
+    then the rate is bound (`bind_lr`): the schedule keeps its base rates as
+    numbers and fills the bound tensor."""
     opt = make_optimizer(model, cfg)
     sched = ema = None
     if cfg.lr_schedule != "constant":
         sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda count: lr_factor(count, cfg))
+    bind_lr(opt)
     if cfg.ema_decay:
         ema = {k: p.detach().clone() for k, p in model.named_parameters()}
     return TrainState(model, opt, 0, seed, sched, ema)
@@ -186,12 +222,21 @@ def ema_model(ts: TrainState) -> net.Model:
 
 def state_dict(ts: TrainState) -> dict:
     """What a checkpoint holds: the model's state_dict (parameters and BN
-    running statistics), the optimizer's (Adam moments and counts), the schedule's (None when constant), the step, the seed and the
-    EMA (None without one). Live tensors: `Checkpointer.save` copies them."""
+    running statistics), the optimizer's (Adam moments and counts), the
+    schedule's (None when constant), the step, the seed and the EMA (None
+    without one); the rates as numbers whatever the device (on the card
+    they live in tensors, `bind_lr`). Live tensors: `Checkpointer.save`
+    copies them."""
+    opt = ts.optimizer.state_dict()
+    opt["param_groups"] = [{**g, "lr": float(g["lr"])} for g in opt["param_groups"]]
+    sched = None
+    if ts.scheduler is not None:
+        sched = ts.scheduler.state_dict()
+        sched["_last_lr"] = [float(lr) for lr in sched["_last_lr"]]
     return {
         "model": ts.model.state_dict(),
-        "optimizer": ts.optimizer.state_dict(),
-        "scheduler": None if ts.scheduler is None else ts.scheduler.state_dict(),
+        "optimizer": opt,
+        "scheduler": sched,
         "step": ts.step,
         "seed": ts.seed,
         "ema": ts.ema,
@@ -211,7 +256,10 @@ def load_state_dict(ts: TrainState, saved: dict) -> None:
                 "(lr_schedule and ema_decay must match the run that saved it)"
             )
     ts.model.load_state_dict(saved["model"])
+    # New state tensors and groups: a CUDA graph captured before this reads
+    # the old ones, so the compiled steps capture again (`_graph_tensors`).
     ts.optimizer.load_state_dict(saved["optimizer"])
+    bind_lr(ts.optimizer)
     if ts.scheduler is not None:
         ts.scheduler.load_state_dict(saved["scheduler"])
     if ts.ema is not None:
@@ -279,15 +327,13 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, torch.where(clip, one * max_norm, one))
 
 
-def apply_update(ts: TrainState, cfg: configs.TrainConfig) -> None:
-    """The update from the gradients in the parameters' `.grad`: clip,
-    Adam/AdamW at the scheduled rate, schedule step, EMA."""
+def _update_on_device(ts: TrainState, cfg: configs.TrainConfig) -> None:
+    """The device work of the update: clip, Adam/AdamW at the rate the
+    schedule set, EMA."""
     params = [p for p in ts.model.parameters() if p.grad is not None]
     if cfg.grad_clip_norm:
         clip_by_global_norm([p.grad for p in params], cfg.grad_clip_norm)
     ts.optimizer.step()
-    if ts.scheduler is not None:
-        ts.scheduler.step()
     if ts.ema is not None:
         d = cfg.ema_decay
         names, live = zip(*ts.model.named_parameters())
@@ -297,20 +343,45 @@ def apply_update(ts: TrainState, cfg: configs.TrainConfig) -> None:
             torch._foreach_add_(shadow, [p.detach() for p in live], alpha=1.0 - d)
 
 
+def _advance(ts: TrainState) -> None:
+    """The host's part of a step, after its device work: the schedule's
+    count (it writes the next update's rate) and the step."""
+    if ts.scheduler is not None:
+        ts.scheduler.step()
+    ts.step += 1
+
+
+def apply_update(ts: TrainState, cfg: configs.TrainConfig) -> None:
+    """The update from the gradients in the parameters' `.grad`: clip,
+    Adam/AdamW at the scheduled rate, EMA, schedule step."""
+    _update_on_device(ts, cfg)
+    if ts.scheduler is not None:
+        ts.scheduler.step()
+
+
+def _step_on_device(
+    ts: TrainState, batch: dict, consts: net.ModelConsts, cfg: configs.TrainConfig, mesh=None
+) -> dict[str, torch.Tensor]:
+    """The device work of `train_step`, which is what a CUDA graph of the
+    step records: its host code leaves `ts.step` and the schedule alone."""
+    ts.optimizer.zero_grad(set_to_none=True)
+    total, terms = loss_and_metrics(ts.model, consts, batch, cfg, mesh)
+    total.backward()
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(ts.model.parameters(), mesh)
+    _update_on_device(ts, cfg)
+    return {k: v.detach() for k, v in terms.items()}
+
+
 def train_step(
     ts: TrainState, batch: dict, consts: net.ModelConsts, cfg: configs.TrainConfig, mesh=None
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on `batch`; updates `ts` in place and returns the
     terms as detached device tensors (no host synchronisation). Under
     `mesh` the gradients are summed over the ranks before the update."""
-    ts.optimizer.zero_grad(set_to_none=True)
-    total, terms = loss_and_metrics(ts.model, consts, batch, cfg, mesh)
-    total.backward()
-    if mesh is not None:
-        mesh_lib.all_reduce_grads(ts.model.parameters(), mesh)
-    apply_update(ts, cfg)
-    ts.step += 1
-    return {k: v.detach() for k, v in terms.items()}
+    terms = _step_on_device(ts, batch, consts, cfg, mesh)
+    _advance(ts)
+    return terms
 
 
 def step_seed(seed: int, step: int, *stream: int) -> int:
@@ -329,6 +400,16 @@ def make_batch(
     rendered (its band of image rows of the targets under a render axis)."""
     dev = consts.smpl.v_template.device
     gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step))
+    return _draw_batch(gen, batch_size, consts, cfg, mesh)
+
+
+def _draw_batch(
+    gen: torch.Generator, batch_size: int, consts: net.ModelConsts, cfg: configs.TrainConfig,
+    mesh=None,
+) -> dict[str, torch.Tensor]:
+    """`make_batch` from `gen`, seeded by the caller: a CUDA graph records
+    the draws of a generator registered with it, and the caller reseeds it
+    before each replay."""
     draws = synthetic.sample_draws(
         gen, batch_size, consts, cfg.synthetic, cfg.model.image_size
     )
@@ -346,13 +427,176 @@ def fused_step(
 ) -> dict[str, torch.Tensor]:
     """`cfg.steps_per_call` fused steps in one call, each generating the
     batch of its own step, then updating; returns the last step's terms.
-    The same math as that many calls of one step: in eager PyTorch the call
-    is a loop, so its size sets only when `fit` logs (capturing it as one
-    CUDA graph is a performance follow-up in ROADMAP.md Queue 1)."""
+    The eager step, one host launch a kernel: `compile_fused_step` is the
+    same step as a CUDA graph, and runs this on the CPU."""
     for _ in range(cfg.steps_per_call):
         batch = make_batch(ts.seed, ts.step, cfg.batch_size, consts, cfg, mesh)
         terms = train_step(ts, batch, consts, cfg, mesh)
     return terms
+
+
+def _graph_device(consts: net.ModelConsts, mesh, name: str) -> Optional[torch.device]:
+    """The card a compiled step is captured on; None on the CPU, where it
+    runs eagerly. A gloo mesh is refused: gloo's collectives run on the
+    host, and a CUDA graph records device work only."""
+    dev = consts.smpl.v_template.device
+    if mesh is not None and mesh.backend != "nccl":
+        raise ValueError(
+            f"{name} captures the step as a CUDA graph, which cannot record the "
+            f"{mesh.backend} backend's host collectives: run the eager train.fused_step "
+            "(train.fit does on such a mesh), or an NCCL mesh"
+        )
+    return dev if dev.type == "cuda" else None
+
+
+def _graph_tensors(ts: TrainState) -> list:
+    """What a graph of `ts`'s step reads or writes in place and a caller
+    could replace (`load_state_dict` replaces the optimizer's): the model,
+    its parameters and buffers, the optimizer's rates and state, the EMA. A
+    compiled step captures again when any of them is not the one it was
+    captured with, and holds them meanwhile, so their memory is not
+    reused."""
+    opt = ts.optimizer
+    out = [ts.model, *ts.model.parameters(), *ts.model.buffers()]
+    out += [g["lr"] for g in opt.param_groups]
+    out += [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+    return out + (list(ts.ema.values()) if ts.ema is not None else [])
+
+
+class _GraphedStep:
+    """One training step as a CUDA graph: captured at the first call on a
+    state, after a real step that runs eagerly on the side stream as the
+    warm-up (`utils/graphs.py`), then replayed. Around each replay the host
+    reseeds the step's generator by (seed, step) and advances the schedule
+    (which fills the rate tensor for the next update) and `ts.step`, as the
+    eager step does."""
+
+    def __init__(self, cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, device: torch.device):
+        self.cfg, self.consts, self.mesh, self.device = cfg, consts, mesh, device
+        self.gen = torch.Generator(device=device)
+        self.graph: Optional[graphs.Graph] = None
+        self.captures = 0
+        self._bound: Optional[list] = None
+
+    def _capture(self, ts: TrainState, step_fn: Callable[[], dict]) -> dict:
+        """The warm-up step (a real one, eager), then the capture."""
+        bind_lr(ts.optimizer)
+        terms = graphs.warm_up(step_fn, self.device)
+        _advance(ts)
+        self.graph = graphs.capture(step_fn, self.device, generators=(self.gen,))
+        self.captures += 1
+        self._bound = _graph_tensors(ts)
+        return terms
+
+    def _stale(self, ts: TrainState) -> bool:
+        return self.graph is None or not graphs.same_tensors(self._bound, _graph_tensors(ts))
+
+    def _replay(self, ts: TrainState) -> dict:
+        terms = self.graph.replay()
+        _advance(ts)
+        return terms
+
+
+class FusedStepGraph(_GraphedStep):
+    """`compile_fused_step`'s callable on the card: `fn(ts)` runs
+    `cfg.steps_per_call` steps (`fn(ts, k)`: k), each a replay of one
+    captured fused step (its batch generated on the device from the
+    generator seeded by (seed, step), then the update), and returns clones
+    of the last step's terms. `captures`, and the last graph's `seconds`
+    and `pool_bytes`, say what capturing cost."""
+
+    def __call__(self, ts: TrainState, num_steps: Optional[int] = None) -> dict[str, torch.Tensor]:
+        cfg, consts, mesh = self.cfg, self.consts, self.mesh
+
+        def step():
+            batch = _draw_batch(self.gen, cfg.batch_size, consts, cfg, mesh)
+            return _step_on_device(ts, batch, consts, cfg, mesh)
+
+        for _ in range(cfg.steps_per_call if num_steps is None else num_steps):
+            self.gen.manual_seed(step_seed(ts.seed, ts.step))
+            terms = self._capture(ts, step) if self._stale(ts) else self._replay(ts)
+        return {k: v.clone() for k, v in terms.items()}
+
+
+def compile_fused_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
+    """The reference's single-dispatch step (its `compile_fused_step`):
+    `fn(ts) -> terms` runs `cfg.steps_per_call` fused steps, batch
+    generation and update, and returns the last step's terms.
+
+    On the card (`FusedStepGraph`): one step captured as a CUDA graph at
+    the first call and replayed once a step, each replay reseeded for its
+    own step, so the steps equal the eager `fused_step`'s bitwise. A state
+    whose optimizer state was replaced since (a checkpoint loaded) is
+    captured again. Under an NCCL mesh the graph records the step's
+    collectives; a gloo mesh is refused (ValueError). A capture that fails
+    raises: there is no eager fallback on the card. On the CPU `fn` is the
+    eager `fused_step`."""
+    dev = _graph_device(consts, mesh, "compile_fused_step")
+    if dev is None:
+        return lambda ts, num_steps=None: fused_step(
+            ts, consts, cfg if num_steps is None else dataclasses.replace(cfg, steps_per_call=num_steps),
+            mesh,
+        )
+    return FusedStepGraph(cfg, consts, mesh, dev)
+
+
+class _BatchGraph:
+    """`compile_train_fns`'s `gen_fn` on the card: `make_batch` as a CUDA
+    graph, its generator reseeded by (seed, step) before each replay;
+    returns clones of the batch."""
+
+    def __init__(self, cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, device: torch.device):
+        self.gen = torch.Generator(device=device)
+        self.fn = lambda: _draw_batch(self.gen, cfg.batch_size, consts, cfg, mesh)
+        self.device = device
+        self.graph: Optional[graphs.Graph] = None
+
+    def __call__(self, seed: int, step: int) -> dict[str, torch.Tensor]:
+        if self.graph is None:
+            graphs.warm_up(self.fn, self.device)
+            self.graph = graphs.capture(self.fn, self.device, generators=(self.gen,))
+        self.gen.manual_seed(step_seed(seed, step))
+        return {k: v.clone() for k, v in self.graph.replay().items()}
+
+
+class TrainStepGraph(_GraphedStep):
+    """`compile_train_fns`'s `step_fn` on the card: `fn(ts, batch)` copies
+    the batch into the graph's input buffers and replays one captured
+    `train_step`; returns clones of the terms. A batch of other keys,
+    shapes or types is captured again, with its own buffers."""
+
+    def __init__(self, cfg, consts, mesh, device):
+        super().__init__(cfg, consts, mesh, device)
+        self.inputs: Optional[dict[str, torch.Tensor]] = None
+
+    def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        layout = {k: (v.shape, v.dtype) for k, v in batch.items()}
+        if self.inputs is None or layout != {k: (v.shape, v.dtype) for k, v in self.inputs.items()}:
+            self.inputs, self.graph = {k: torch.empty_like(v, device=self.device) for k, v in batch.items()}, None
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        if self._stale(ts):
+            inputs = self.inputs
+            terms = self._capture(ts, lambda: _step_on_device(ts, inputs, self.consts, self.cfg, self.mesh))
+        else:
+            terms = self._replay(ts)
+        return {k: v.clone() for k, v in terms.items()}
+
+
+def compile_train_fns(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
+    """The reference's `compile_train_fns`: `(gen_fn, step_fn)`, with
+    `gen_fn(seed, step)` the batch of `make_batch` and `step_fn(ts, batch)`
+    the `train_step` on it, each a CUDA graph on the card (`_BatchGraph`,
+    `TrainStepGraph`; equal to the eager functions bitwise) and the eager
+    functions on the CPU. A gloo mesh is refused, as by
+    `compile_fused_step`."""
+    dev = _graph_device(consts, mesh, "compile_train_fns")
+    if dev is None:
+        return (
+            lambda seed, step: make_batch(seed, step, cfg.batch_size, consts, cfg, mesh),
+            lambda ts, batch: train_step(ts, batch, consts, cfg, mesh),
+        )
+    return _BatchGraph(cfg, consts, mesh, dev), TrainStepGraph(cfg, consts, mesh, dev)
 
 
 def _fold_num_steps(cfg: configs.TrainConfig, num_steps: Optional[int]):
@@ -510,6 +754,23 @@ def _auto_mesh(cfg: configs.TrainConfig, device: torch.device | str = "cuda"):
     return mesh_lib.make_mesh(n, device)
 
 
+def _fit_route(consts: net.ModelConsts, mesh) -> str:
+    """How `fit` runs its steps, said in its first log line: the CUDA graph
+    of `compile_fused_step` wherever it can capture (the card, alone or on
+    an NCCL mesh), else the eager `fused_step`: on the CPU, on a gloo mesh
+    (host collectives), and under anomaly mode (`--debug-nans`), which
+    checks every op on the host as it runs."""
+    if consts.smpl.v_template.device.type != "cuda":
+        return "eager fused_step (CPU)"
+    if mesh is not None and mesh.backend != "nccl":
+        return f"eager fused_step ({mesh.backend} mesh: host collectives)"
+    if torch.is_anomaly_enabled():
+        return "eager fused_step (anomaly mode, --debug-nans)"
+    return "graph: compile_fused_step, one CUDA graph replay a step" + (
+        "" if mesh is None else f" (NCCL mesh of {mesh.world})"
+    )
+
+
 def _run(
     cfg: configs.TrainConfig,
     num_steps: Optional[int],
@@ -545,6 +806,13 @@ def _run(
             file=sys.stderr,
         )
     batches = None if source is None else source(start, consts.smpl.v_template.device, mesh)
+    step_fn = None
+    if source is None:
+        route = _fit_route(consts, mesh)
+        if lead:
+            print(f"fit: {route}", file=sys.stderr)
+        if route.startswith("graph"):
+            step_fn = compile_fused_step(cfg, consts, mesh)
     writer = (
         metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
         if lead else metrics.MetricsWriter(print_every=0)
@@ -555,8 +823,11 @@ def _run(
         while ts.step < num_steps:
             first = ts.step
             if batches is None:
-                call = dataclasses.replace(cfg, steps_per_call=min(cfg.steps_per_call, num_steps - first))
-                terms = fused_step(ts, consts, call, mesh)
+                k = min(cfg.steps_per_call, num_steps - first)
+                if step_fn is not None:
+                    terms = step_fn(ts, k)
+                else:
+                    terms = fused_step(ts, consts, dataclasses.replace(cfg, steps_per_call=k), mesh)
             else:
                 terms = step(ts, next(batches), consts, cfg, mesh)
             if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:
@@ -694,7 +965,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ema-decay", type=float, default=None,
                     help="keep an exponential moving average of the parameters (e.g. 0.999)")
     ap.add_argument("--steps-per-call", type=int, default=None,
-                    help="fused steps per call (a loop here: it only sets where logs fall)")
+                    help="fused steps per call (graph replays on the card; sets where logs fall)")
     ap.add_argument("--loss-weight", action="append", default=None, metavar="NAME=VALUE",
                     help="override one loss weight (repeatable), e.g. --loss-weight j3d=5")
     ap.add_argument("--synthetic", action="append", default=None, metavar="FIELD=VALUE",

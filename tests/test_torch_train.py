@@ -100,6 +100,13 @@ def runs(tiny_asset):
             got["state"] = {k: v.clone() for k, v in model.state_dict().items()}
         got["loss"].append(float(terms["total"]))
     assert tstate.step == STEPS
+    # The same steps through compile_train_fns' step_fn (on the CPU the
+    # eager train_step; on the card a CUDA graph of it).
+    model, consts = net.init(tiny_asset, cfg.model, seed=1, device="cpu")
+    convert.load_jax_params(model, params, state)
+    cstate = train.TrainState(model, train.make_optimizer(model, cfg), 0, 0)
+    _, step_fn = train.compile_train_fns(cfg, consts)
+    got["compiled"] = [{k: float(v) for k, v in step_fn(cstate, tbatch).items()} for _ in range(STEPS)]
     return ref, got, batch
 
 
@@ -130,6 +137,16 @@ def test_train_step_bn_statistics_match_jax(runs):
     assert keys
     for k in keys:
         np.testing.assert_allclose(got["state"][k].numpy(), ref["state"][k], atol=1e-5, err_msg=k)
+
+
+def test_compile_train_fns_step_matches_jax(runs):
+    """compile_train_fns' step_fn on the injected batch: step 1's terms and
+    the loss of each step against the reference's train_step, at the
+    tolerances of the eager step's tests."""
+    ref, got, _ = runs
+    for k, v in ref["terms"].items():
+        np.testing.assert_allclose(got["compiled"][0][k], v, rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose([t["total"] for t in got["compiled"]], ref["loss"], rtol=1e-3)
 
 
 def test_train_loss_over_steps_matches_jax(runs):
