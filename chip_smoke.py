@@ -70,7 +70,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    checkpointed, stopped after step 3, resumed from step 2 and captured
    again, against a straight graphed run: bitwise. NCCL at world 1: the
    graphed step through the mesh (its all-reduces in the graph) against the
-   graphed no-mesh step, bitwise. The `Predictor`'s bucket graphs at 1, 4,
+   graphed no-mesh step, bitwise. The disk steps on the phase's own
+   64-example 320² dataset (config4_full b32, augmented):
+   `train.compile_data_step` (`fit_dataset`'s route) 5 graphed steps
+   against 5 eager `data_train_step`s on the same prefetched batches, terms
+   and state bitwise, 1 LBS, 1 raster forward, 1 raster backward launch a
+   replay, the draws different every step, host wall both routes in turns;
+   where PIL imports, `compile_data_step(raw=False)` (`fit_preprocessed`'s
+   route) against `train_step` on an image directory; NCCL world 1: the
+   graphed disk step through the mesh against no mesh, bitwise. The
+   evaluators' graphs against `graphs=False`, every metric bitwise, bf16
+   and int8c: `evaluate` on the plain and hardapp suites (one capture a
+   case, launches exactly the eager route's), host ms a batch both routes
+   and the cost of the eager PA-MPJPE tail (the SVD cannot be captured),
+   `evaluate_dataset`, `evaluate_preprocessed` where PIL imports, and an
+   EMA model made anew after a step captured anew. The `Predictor`'s
+   bucket graphs at 1, 4,
    8, 32, 128 (and a padded 3), bf16 and int8c: every output bitwise the
    eager Predictor's, an earlier request's outputs unchanged by later
    replays, 1 LBS launch a request, request median and p90 both routes.
@@ -108,12 +123,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    64); one raw batch preprocessed on the card against the CPU (labels
    equal, images within PREPROCESS_TOL; augmentation off and with the same
    draws) and prefetched batches bitwise equal to plain copies;
-   `fit_dataset` with augmentation for 8 steps across an epoch boundary
-   (1 LBS, 1 raster forward, 1 raster backward launch a step; host ms/step,
-   img/s, the prefetcher's H2D time and waits, a profiled window of disk
-   steps); `fit_dataset` to step 4 with checkpoints, resumed to 8, against
-   a straight run (raw batches and draws bitwise, loss terms within
-   RESUME_TOL), over the file and over 4 shards; `evaluate_dataset` over 4
+   `fit_dataset` with augmentation for 8 steps across an epoch boundary on
+   its graph route (its route line checked; 1 LBS, 1 raster forward, 1
+   raster backward launch a step; host ms/step, img/s, the prefetcher's
+   H2D time and waits, a profiled window of eager disk steps);
+   `fit_dataset` to step 4 with checkpoints, resumed (captured again) to
+   8, against a straight run (state and terms bitwise), over the file and
+   over 4 shards; `evaluate_dataset` over 4
    batches (2 LBS and 1 raster forward launch a batch) and the kernels
    against the plain versions on its first batch; the image-directory path
    (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
@@ -168,7 +184,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 The last three lines of standard output are the kernel record
 ({"kernels": [...]}, with each kernel's launches on the config4_full
 training main path, per replay of the graphed config4_full step
-(`launches_graph_replay`), on the config4_mixed steps and in its evaluation, on
+(`launches_graph_replay`), per replay of the graphed disk step
+(`launches_disk_graph_replay`) and of a graphed plain-suite evaluation
+batch (`launches_eval_graph_replay`), on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
 requests and their evaluation (`launches_int8`), in the example
@@ -276,6 +294,7 @@ ROBUST_WARMUP = 3
 ROBUST_STEPS = 3
 RESUME_K = 2
 PER_STEP_ROBUST = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1}
+PER_EVAL_BATCH = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 2}  # batch, forward, ground truth SMPL
 PER_EVAL_BATCH_HARD = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 1}  # hard targets: no target render
 # The resumed run's loss terms at step 2k against the straight run's,
 # relative: cuDNN's backward is not bitwise repeatable, so two runs of the
@@ -1553,27 +1572,15 @@ def measuring_prefetch(store: list):
         dataset_lib.prefetch_to_device = plain
 
 
-@contextlib.contextmanager
-def recording_disk_steps(store: dict):
-    """Inside the block `train.data_train_step` records, under its step, the
-    raw batch it was given and the augmentation draws it made, both copied
-    to host memory, into store["raw"] and store["draws"]."""
-    plain_step, plain_draws = train.data_train_step, train.augment_draws
-
-    def draws(seed, step, *args):
-        d = plain_draws(seed, step, *args)
-        store.setdefault("draws", {})[step] = {k: v.cpu() for k, v in d.items()}
-        return d
-
-    def step(ts, raw, *args):
-        store.setdefault("raw", {})[ts.step] = {k: v.cpu() for k, v in raw.items()}
-        return plain_step(ts, raw, *args)
-
-    train.data_train_step, train.augment_draws = step, draws
-    try:
-        yield
-    finally:
-        train.data_train_step, train.augment_draws = plain_step, plain_draws
+def routed(fn, want: str):
+    """`fn()` with its standard error kept; checks that the run named the
+    route `want` in its first `fit:` line."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = fn()
+    lines = [x for x in err.getvalue().splitlines() if x.startswith("fit: ")]
+    check(bool(lines) and lines[0].startswith(f"fit: {want}"), f"route line {lines[:1]}, not 'fit: {want}...'")
+    return out
 
 
 def native_check(rng) -> dict:
@@ -1694,8 +1701,9 @@ def disk_phase(asset, smi) -> dict:
         measured, stamps = [], []
         _build.reset_counts()
         with scaled_init(), measuring_prefetch(measured):
-            ts_s, terms = train.fit_dataset(cfg, ds, num_steps=DISK_STEPS, asset=asset, device="cuda",
-                                            log=lambda rec: stamps.append(time.perf_counter()))
+            ts_s, terms = routed(lambda: train.fit_dataset(
+                cfg, ds, num_steps=DISK_STEPS, asset=asset, device="cuda",
+                log=lambda rec: stamps.append(time.perf_counter())), "graph: compile_data_step,")
         launches = _build.counts()
         for name, per in PER_STEP_DISK.items():
             check(launches.get(name, 0) == per * DISK_STEPS,
@@ -1729,8 +1737,9 @@ def disk_phase(asset, smi) -> dict:
         del ts_p
         print(
             f"[disk] fit_dataset config4_full B={B} {size}^2 crops from {DISK_SOURCE}^2, --augment, {DISK_STEPS} steps "
-            f"({ds.steps_per_epoch()} an epoch): launches {launches}; host median {med:.3f} ms/step, p90 {p90:.3f} ms "
-            f"({B / med * 1e3:.1f} img/s) over steps 1-{DISK_STEPS - 1}; profiled window of {DISK_PROFILED} steps: "
+            f"({ds.steps_per_epoch()} an epoch) on the graph route: launches {launches}; host median {med:.3f} ms/step, "
+            f"p90 {p90:.3f} ms ({B / med * 1e3:.1f} img/s) over steps 1-{DISK_STEPS - 1} (step 1 is the capture); "
+            f"eager data_train_step, profiled window of {DISK_PROFILED} steps: "
             f"device {dev['device_ms']:.3f} ms/step, wall {wall:.3f} ms, busy share {dev['device_ms'] / wall:.3f}, "
             f"{dev['kernels']:.0f} kernels, by category {json.dumps({k: round(v, 3) for k, v in dev['by_category_ms'].items()})}; "
             f"H2D {statistics.median(h2d):.3f} ms/batch (median of {len(h2d)}), prefetch wait median "
@@ -1741,34 +1750,25 @@ def disk_phase(asset, smi) -> dict:
         # --- Resume at half way against the straight run: file and shards. --
         shard_dir = os.path.join(work, "shards")
         dataset_lib.shard_npz(path, shard_dir, -(-DISK_EXAMPLES // DISK_SHARDS))
+        # The graph route: the resumed run captures anew from the restored
+        # state, and its steps must be the straight run's bitwise.
         for source, data in (("file", ds), ("shards", dataset_lib.open_dataset(shard_dir, B, seed=cfg.seed))):
-            straight = {}
-            with scaled_init(), recording_disk_steps(straight):
-                _, terms_s = train.fit_dataset(cfg, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
+            with scaled_init():
+                ts_t, terms_s = train.fit_dataset(cfg, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
             split = dataclasses.replace(cfg, checkpoint_every=half, checkpoint_dir=os.path.join(work, f"ck_{source}"))
-            resumed = {}
             with scaled_init():
                 train.fit_dataset(split, data, num_steps=half, asset=asset, device="cuda")
-                with recording_disk_steps(resumed):
-                    ts_r, terms_r = train.fit_dataset(split, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
-            check(ts_r.step == DISK_STEPS and sorted(resumed["raw"]) == list(range(half, DISK_STEPS)),
-                  f"{source}: the resumed run took steps {sorted(resumed['raw'])}")
-            for step in range(half, DISK_STEPS):
-                for what in ("raw", "draws"):
-                    a, b = resumed[what][step], straight[what][step]
-                    check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
-                          f"{source}: the resumed run's {what} of step {step} differ from the straight run's")
-            rel = {t: abs(terms_r[t] - v) / max(abs(v), 1e-6) for t, v in terms_s.items()}
-            worst = max(rel, key=rel.get)
-            check(set(terms_r) == set(terms_s) and rel[worst] <= RESUME_TOL,
-                  f"{source}: resumed vs straight at step {DISK_STEPS}: {worst} rel err {rel[worst]} > {RESUME_TOL}")
+                ts_r, terms_r = train.fit_dataset(split, data, num_steps=DISK_STEPS, asset=asset, device="cuda")
+            check(ts_r.step == DISK_STEPS, f"{source}: the resumed run ended at step {ts_r.step}")
+            same_state(run_state(ts_t), run_state(ts_r), True, source, "resumed graphed disk run")
+            check(terms_r == terms_s, f"{source}: resumed terms {terms_r} != straight {terms_s}")
             print(
-                f"[disk] {source} ({len(getattr(data, 'paths', [path]))} file(s)): fit_dataset to step {half} with "
-                f"checkpoints, resumed to {DISK_STEPS}: raw batches and augmentation draws of steps {half}-{DISK_STEPS - 1} "
-                f"bitwise the straight run's; loss terms at step {DISK_STEPS}: worst {worst} rel err {rel[worst]:.3e} "
-                f"(tolerance {RESUME_TOL:g})"
+                f"[disk] {source} ({len(getattr(data, 'paths', [path]))} file(s)): fit_dataset (graph route) to step "
+                f"{half} with checkpoints, resumed and captured again to {DISK_STEPS}: state (parameters, BN buffers, "
+                f"Adam, rates) and the terms at step {DISK_STEPS} bitwise the straight graphed run's "
+                f"(total {terms_s['total']:.6f})"
             )
-            del ts_r
+            del ts_r, ts_t
 
         # --- evaluate_dataset, and the kernels against the plain versions. --
         _build.reset_counts()
@@ -1808,7 +1808,8 @@ def disk_phase(asset, smi) -> dict:
                 image_dir.export_image_dir({k: z[k][: 2 * B] for k in keys}, root)
             idd = image_dir.ImageDirDataset(root, B, size, seed=cfg.seed, augment=cfg.augment)
             with scaled_init():
-                ts_i, terms_i = train.fit_preprocessed(cfg, idd, num_steps=2, asset=asset, device="cuda")
+                ts_i, terms_i = routed(lambda: train.fit_preprocessed(
+                    cfg, idd, num_steps=2, asset=asset, device="cuda"), "graph: compile_data_step(raw=False),")
             mi = evaluate.evaluate_preprocessed(ts_i.model, consts_e, cfg, image_dir.ImageDirDataset(root, B, size))
             check(np.isfinite(terms_i["total"]) and all(np.isfinite(v) for v in mi.values()),
                   f"image directory: {terms_i}, {mi}")
@@ -2638,6 +2639,12 @@ GRAPH_TIMED = 20  # host wall per step, each route, in turns after the checks
 GRAPH_BUCKETS = (1, 4, 8, 32, 128)
 GRAPH_REQ_TIMED = 20
 GRAPH_RESUME = 4  # the resumed run's budget; it stops at 3 and resumes from the save at 2
+GRAPH_DISK_EXAMPLES = 64  # the phase's own 320² dataset: 2 batches an epoch
+GRAPH_DISK_STEPS = 5  # disk steps each route (the first graphed one the eager warm-up and capture)
+GRAPH_DISK_TIMED = 16  # host wall per disk step, each route, in turns
+GRAPH_PRE_STEPS = 3  # fit_preprocessed's steps each route
+GRAPH_EVAL_BATCHES = 3  # plain-suite batches an evaluate call (hardapp: 1, its dense hard raster ~0.35 s)
+GRAPH_EVAL_TIMED = 10  # replays timed alone and with the eager PA-MPJPE tail
 
 
 def run_state(ts) -> dict:
@@ -2771,10 +2778,11 @@ def graphed_resume(asset, smi) -> None:
     )
 
 
-def graphed_nccl(asset, smi) -> None:
+def graphed_nccl(asset, smi, ds=None) -> None:
     """NCCL at world size 1 in this process: `compile_fused_step` under the
     mesh (the graph records the collectives) against the graphed step with
-    no mesh, 3 steps each, terms and state bitwise."""
+    no mesh, 3 steps each, terms and state bitwise; with `ds`, the same for
+    the augmented disk step (`compile_data_step`) on its batches."""
     cfg = configs.CONFIG4_FULL
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0, world_size=1)
@@ -2792,6 +2800,25 @@ def graphed_nccl(asset, smi) -> None:
                 f"[graphs] NCCL world 1: 3 graphed steps through the mesh (the all-reduces in the graph) "
                 f"equal the graphed no-mesh steps bitwise; capture {fn_m.graph.seconds:.3f} s [{smi}]"
             )
+            if ds is not None:
+                dcfg = disk_cfg()
+                ts_m, consts = scaled_state(dcfg, asset, "cuda")
+                ts_p, _ = scaled_state(dcfg, asset, "cuda")
+                fn_m = train.compile_data_step(dcfg, consts, mesh)
+                fn_p = train.compile_data_step(dcfg, consts)
+                batches = disk_batches(ds, dcfg, rows=mesh.batch_rows(dcfg.batch_size))
+                for i in range(3):
+                    raw = next(batches)
+                    same_state(fn_p(ts_p, raw), fn_m(ts_m, raw), True, f"disk step {i} terms",
+                               "NCCL world 1 graphed disk step")
+                batches.close()
+                same_state(run_state(ts_p), run_state(ts_m), True, "state", "NCCL world 1 graphed disk run")
+                check(fn_m.captures == 1, f"NCCL world 1 disk: {fn_m.captures} captures")
+                print(
+                    f"[graphs] NCCL world 1: 3 graphed augmented disk steps through the mesh (draws cut to the "
+                    f"rank's rows, the all-reduces in the graph) equal the graphed no-mesh disk steps bitwise; "
+                    f"capture {fn_m.graph.seconds:.3f} s [{smi}]"
+                )
         finally:
             dist.destroy_process_group()
 
@@ -2844,26 +2871,288 @@ def graphed_requests(label, make, cfg, rng, smi) -> dict:
     return {n: {r: statistics.median(times[(r, n)]) for r in ("eager", "graph")} for n in GRAPH_BUCKETS}
 
 
+def disk_cfg():
+    """config4_full with augmentation, as `train --dataset D --augment`."""
+    cfg = configs.CONFIG4_FULL
+    return dataclasses.replace(cfg, log_every=1, augment=dataclasses.replace(cfg.augment, enabled=True))
+
+
+def disk_batches(ds, cfg, rows=None):
+    """`fit_dataset`'s prefetched raw batches of `ds` from step 0."""
+    pulls = train.dataset_pulls(cfg, ds.keys)
+    return dataset_lib.prefetch_to_device(
+        ({k: b[src] for k, src in pulls.items()} for b in ds.batches()), device=torch.device("cuda"), rows=rows)
+
+
+def graphed_disk(asset, ds, idd, smi) -> dict:
+    """`train.compile_data_step` (the route of `fit_dataset` on the card) at
+    config4_full b32, augmented, 256² crops of 320² images: GRAPH_DISK_STEPS
+    graphed steps (the first the eager warm-up and the capture) against as
+    many eager `data_train_step`s on the same prefetched batches from the
+    same state, terms every step and the final state bitwise, 1 LBS, 1
+    raster forward and 1 raster backward launch a call; the draws of the
+    steps differ (so a replay equal to the eager step reads its own step's
+    draws); host wall per step of both routes in turns. With `idd` (an
+    image directory, where PIL imports) the same for `fit_preprocessed`'s
+    step, `compile_data_step(raw=False)` against `train_step`."""
+    cfg = disk_cfg()
+    B, cuda = cfg.batch_size, torch.device("cuda")
+    ts_g, consts = scaled_state(cfg, asset, "cuda")
+    ts_e, _ = scaled_state(cfg, asset, "cuda")
+    fn = train.compile_data_step(cfg, consts)
+    batches = disk_batches(ds, cfg)
+    launches = []
+    for i in range(GRAPH_DISK_STEPS):
+        raw = next(batches)
+        _build.reset_counts()
+        tg = fn(ts_g, raw)
+        torch.cuda.synchronize()
+        launches.append(_build.counts())
+        same_state(train.data_train_step(ts_e, raw, consts, cfg), tg, True, f"disk step {i} terms", "graphed disk step")
+        check(launches[-1] == PER_STEP_DISK, f"graphed disk call {i} launched {launches[-1]}, not {PER_STEP_DISK}")
+    same_state(run_state(ts_e), run_state(ts_g), True, "disk", "graphed disk run's state")
+    check(fn.captures == 1, f"compile_data_step: {fn.captures} captures in {GRAPH_DISK_STEPS} calls")
+    draws = [train.augment_draws(ts_g.seed, i, B, cfg, cuda) for i in range(GRAPH_DISK_STEPS)]
+    check(all(not torch.equal(a["scale"], b["scale"]) for a, b in zip(draws, draws[1:])),
+          "the disk steps' augmentation draws repeat from step to step")
+    flips = [int(d["flip"].sum()) for d in draws]
+    runs = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        for _ in range(GRAPH_DISK_TIMED // 2):
+            t0 = time.perf_counter()
+            raw = next(batches)
+            if route == "graph":
+                fn(ts_g, raw)
+            else:
+                train.data_train_step(ts_e, raw, consts, cfg)
+            torch.cuda.synchronize()
+            runs[route].append((time.perf_counter() - t0) * 1e3)
+    batches.close()
+    print(
+        f"[graphs] compile_data_step (fit_dataset's route) config4_full B={B} augmented, {DISK_SOURCE}^2 -> 256^2: "
+        f"{GRAPH_DISK_STEPS} graphed steps (1 eager warm-up + capture, {GRAPH_DISK_STEPS - 1} replays) equal "
+        f"{GRAPH_DISK_STEPS} eager data_train_steps bitwise (terms each step; parameters, BN buffers, Adam moments "
+        f"and counts, rates); flips a step {flips} (the draws differ every step); capture {fn.graph.seconds:.3f} s, "
+        f"pool {fn.graph.pool_bytes / 2**20:.1f} MiB; launches per replay {launches[-1]}; host wall per step "
+        f"(the batch's prefetch wait included) over {GRAPH_DISK_TIMED} steps each, in turns: eager "
+        f"{wall_stats(runs['eager'])}, graph {wall_stats(runs['graph'])} [{smi}]"
+    )
+    out = {"per_replay": launches[-1], "capture_s": fn.graph.seconds, "pool_bytes": fn.graph.pool_bytes}
+    out.update({f"{r}_ms": statistics.median(t) for r, t in runs.items()})
+    if idd is None:
+        print("[graphs] fit_preprocessed: PIL does not import here, so its graph was not driven")
+        return out
+    ts_g, consts = scaled_state(cfg, asset, "cuda")
+    ts_e, _ = scaled_state(cfg, asset, "cuda")
+    fn = train.compile_data_step(cfg, consts, raw=False)
+    batches = dataset_lib.prefetch_to_device(idd.batches(), device=cuda)
+    for i in range(GRAPH_PRE_STEPS):
+        b = next(batches)
+        _build.reset_counts()
+        tg = fn(ts_g, b)
+        torch.cuda.synchronize()
+        got = _build.counts()
+        same_state(train.train_step(ts_e, b, consts, cfg), tg, True, f"step {i} terms", "graphed preprocessed step")
+        check(got == PER_STEP_DISK, f"graphed preprocessed call {i} launched {got}")
+    batches.close()
+    same_state(run_state(ts_e), run_state(ts_g), True, "preprocessed", "graphed preprocessed run's state")
+    check(fn.captures == 1, f"compile_data_step(raw=False): {fn.captures} captures")
+    print(
+        f"[graphs] compile_data_step(raw=False) (fit_preprocessed's route), image directory, host-augmented: "
+        f"{GRAPH_PRE_STEPS} graphed steps equal {GRAPH_PRE_STEPS} eager train_steps bitwise (terms, state); "
+        f"capture {fn.graph.seconds:.3f} s, pool {fn.graph.pool_bytes / 2**20:.1f} MiB; launches per replay {got}"
+    )
+    return out
+
+
+def pa_tail(smi) -> dict:
+    """What the eager PA-MPJPE tail costs a batch, on the most recently used
+    evaluation graph (a stream batch): host wall of the replay alone and of
+    the replay with the tail, and the tail between CUDA events."""
+    entry = next(reversed(evaluate._graphs.values()))
+    item = train.step_seed(123, 0)
+    alone, tail = [], []
+    for _ in range(GRAPH_EVAL_TIMED):
+        t0 = time.perf_counter()
+        entry.gen.manual_seed(item)
+        entry.graph.replay()
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        entry(item)
+        torch.cuda.synchronize()
+        tail.append((time.perf_counter() - t0) * 1e3)
+    metrics_out, moments = entry.graph.outputs
+    tail_ms = events_ms(lambda: evaluate._finish(metrics_out, moments), 10)
+    out = {"replay_ms": statistics.median(alone), "with_tail_ms": statistics.median(tail), "tail_events_ms": tail_ms}
+    print(
+        f"[graphs] PA-MPJPE split (the batched 3x3 SVD reads its status on the host, so it and the alignment's "
+        f"tail run eagerly after each replay): plain bf16 batch, replay alone {out['replay_ms']:.3f} ms, replay + "
+        f"eager tail {out['with_tail_ms']:.3f} ms (host wall, median of {GRAPH_EVAL_TIMED}); the tail alone "
+        f"{tail_ms:.4f} ms between CUDA events (each call waits for its SVD's status) [{smi}]"
+    )
+    return out
+
+
+@contextlib.contextmanager
+def counting_captures(store: list):
+    """Inside the block every `utils.graphs.capture` appends its graph to
+    `store`."""
+    from indirect_learning_pose_shape_tpu_torch.utils import graphs as graphs_lib
+
+    plain = graphs_lib.capture
+
+    def capture(*args, **kwargs):
+        store.append(plain(*args, **kwargs))
+        return store[-1]
+
+    graphs_lib.capture = capture
+    try:
+        yield
+    finally:
+        graphs_lib.capture = plain
+
+
+def graphed_eval(model, consts, qp, asset, ds, idd, smi) -> dict:
+    """The evaluators' graphs against their eager routes (`graphs=False`),
+    every metric bitwise, bf16 and int8c: `evaluate` on the plain and
+    hardapp suites (the first call captures, the second replays only: one
+    capture a case, its launches and the eager route's exactly per batch),
+    `evaluate_dataset` and, where PIL imports, `evaluate_preprocessed`;
+    an EMA model made anew after a step is captured anew and equals eager;
+    host ms a batch both routes; the eager PA-MPJPE tail's cost."""
+    B = configs.CONFIG4_FULL.batch_size
+    captures: list = []
+    out = {}
+    timing: dict = {}
+    with counting_captures(captures):
+        for suite, batches, per in (("plain", GRAPH_EVAL_BATCHES, PER_EVAL_BATCH),
+                                    ("hardapp", 1, PER_EVAL_BATCH_HARD)):
+            cfg, _ = evaluate.eval_config(configs.CONFIG4_FULL, suite=suite)
+            for label, kw in (("bf16", {}), ("int8c", dict(qparams=qp, int8_impl="int8c"))):
+                n0 = len(captures)
+                got, launches = [], []
+                for graphs in (True, True, False):
+                    _build.reset_counts()
+                    got.append(evaluate.evaluate(model, consts, cfg, batches, graphs=graphs, **kw))
+                    torch.cuda.synchronize()
+                    launches.append(_build.counts())
+                check(got[0] == got[2] and got[1] == got[2],
+                      f"evaluate {suite} {label}: graphed {got[:2]} != eager {got[2]}")
+                check(len(captures) == n0 + 1, f"evaluate {suite} {label}: {len(captures) - n0} captures")
+                want = {k: v * batches for k, v in per.items()}
+                check(all(x == want for x in launches), f"evaluate {suite} {label}: launches {launches}, not {want}")
+                g = captures[-1]
+                print(
+                    f"[graphs] evaluate {suite} {label}, {batches} x {B}: graphed (capture, then replays only) "
+                    f"equal eager bitwise ({', '.join(f'{k} {v:.5f}' for k, v in sorted(got[2].items()))}); "
+                    f"capture {g.seconds:.3f} s, pool {g.pool_bytes / 2**20:.1f} MiB; launches per replay "
+                    f"{g.launches} [{smi}]"
+                )
+                if suite == "plain":
+                    out.setdefault("per_replay", g.launches)
+                    runs = {"eager": [], "graph": []}
+                    for route in ("eager", "graph", "graph", "eager"):
+                        t0 = time.perf_counter()
+                        evaluate.evaluate(model, consts, cfg, batches, graphs=route == "graph", **kw)
+                        runs[route].append((time.perf_counter() - t0) * 1e3 / batches)
+                    timing[label] = {r: statistics.median(t) for r, t in runs.items()}
+                    print(f"[graphs] evaluate plain {label}: host ms a batch (a call of {batches}, its one host "
+                          f"read included), eager {timing[label]['eager']:.3f}, graph {timing[label]['graph']:.3f}")
+                if (suite, label) == ("plain", "bf16"):
+                    out["pa_tail"] = pa_tail(smi)
+
+        cfg = disk_cfg()
+        sources = [("evaluate_dataset", lambda **kw: evaluate.evaluate_dataset(model, consts, cfg, ds, **kw),
+                    PER_EVAL_BATCH_DISK, GRAPH_DISK_EXAMPLES // B)]
+        if idd is not None:
+            sources.append(("evaluate_preprocessed",
+                            lambda **kw: evaluate.evaluate_preprocessed(model, consts, cfg, idd, **kw),
+                            {lbs_cuda.KERNEL: 1, raster_cuda.KERNEL: 1}, idd.steps_per_epoch()))
+        for name, run, per, batches in sources:
+            for label, kw in (("bf16", {}), ("int8c", dict(qparams=qp, int8_impl="int8c"))):
+                n0 = len(captures)
+                _build.reset_counts()
+                g = run(**kw)
+                torch.cuda.synchronize()
+                launches = _build.counts()
+                e = run(graphs=False, **kw)
+                check(g == e, f"{name} {label}: graphed {g} != eager {e}")
+                check(len(captures) == n0 + 1, f"{name} {label}: {len(captures) - n0} captures")
+                want = {k: v * batches for k, v in per.items()}
+                check(launches == want, f"{name} {label}: launches {launches}, not {want}")
+                print(
+                    f"[graphs] {name} {label}, {batches} x {B}: graphed equal eager bitwise "
+                    f"({', '.join(f'{k} {v:.5f}' for k, v in sorted(e.items()))}); capture "
+                    f"{captures[-1].seconds:.3f} s, pool {captures[-1].pool_bytes / 2**20:.1f} MiB; launches per "
+                    f"replay {captures[-1].launches}"
+                )
+        if idd is None:
+            print("[graphs] evaluate_preprocessed: PIL does not import here, so its graph was not driven")
+
+        # An EMA model is a new copy each call: captured anew, never a stale graph.
+        ecfg = dataclasses.replace(configs.CONFIG4_FULL, ema_decay=0.999)
+        ts, tconsts = scaled_state(ecfg, asset, "cuda")
+        n0 = len(captures)
+        first = evaluate.evaluate(train.ema_model(ts), tconsts, ecfg, 1)
+        train.fused_step(ts, tconsts, ecfg)
+        ema = train.ema_model(ts)
+        second = evaluate.evaluate(ema, tconsts, ecfg, 1)
+        check(second == evaluate.evaluate(ema, tconsts, ecfg, 1, graphs=False), "EMA evaluation: graphed != eager")
+        check(len(captures) == n0 + 2 and first != second,
+              f"EMA evaluation after a step: {len(captures) - n0} captures, metrics changed {first != second}")
+        print("[graphs] evaluate of train.ema_model after a step (a new model): captured anew, equal to eager "
+              "bitwise, metrics moved from the first EMA's")
+    evaluate.clear_graphs()
+    out["timing"] = timing
+    return out
+
+
 def graphs_phase(cfg, model, consts, asset, rng, smi) -> dict:
     """The compiled paths (`train.compile_fused_step`, `fit`'s graph route,
-    `serve.Predictor`'s bucket graphs) against the eager ones they record."""
+    `train.compile_data_step`, the evaluators' graphs, `serve.Predictor`'s
+    bucket graphs) against the eager ones they record."""
     t0 = time.perf_counter()
     full = graphed_steps("config4_full", configs.CONFIG4_FULL, asset, GRAPH_STEPS, smi, timed=GRAPH_TIMED)
     for name, preset in (("config4_mixed", configs.CONFIG4_MIXED), ("config4_robust", configs.CONFIG4_ROBUST)):
         graphed_steps(name, dataclasses.replace(preset, ema_decay=0.999), asset, GRAPH_RECIPE_STEPS, smi)
     graphed_train_fns(asset, smi)
     graphed_resume(asset, smi)
-    graphed_nccl(asset, smi)
     from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 
     calib = predict.synthetic_images(consts, cfg, 16, seed=999)
     qp = quant.ptq_quantize(model.encoder, calib)
+    with tempfile.TemporaryDirectory(prefix="ilps_graphs_disk_") as work:
+        path = os.path.join(work, "d.npz")
+        t1 = time.perf_counter()
+        dataset_lib.make_synthetic_dataset(path, GRAPH_DISK_EXAMPLES, source_size=DISK_SOURCE, asset=asset)
+        B = configs.CONFIG4_FULL.batch_size
+        ds = dataset_lib.NpzDataset(path, B, seed=configs.CONFIG4_FULL.seed)
+        idd = idd_eval = None
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            from indirect_learning_pose_shape_tpu_torch.data import image_dir
+
+            root = os.path.join(work, "imgs")
+            with np.load(path) as z:
+                image_dir.export_image_dir({k: z[k] for k in ("images", "masks", "kp2d", "kp_vis")}, root)
+            size = configs.CONFIG4_FULL.model.image_size
+            idd = image_dir.ImageDirDataset(root, B, size, seed=0, augment=disk_cfg().augment)
+            idd_eval = image_dir.ImageDirDataset(root, B, size)
+        print(f"[graphs] the phase's dataset: {GRAPH_DISK_EXAMPLES} examples at {DISK_SOURCE}^2"
+              f"{' and its image directory' if idd is not None else ''} in {time.perf_counter() - t1:.2f} s")
+        disk = graphed_disk(asset, ds, idd, smi)
+        graphed_nccl(asset, smi, ds)
+        ev = graphed_eval(model, consts, qp, asset, ds, idd_eval, smi)
     graphed_requests("bf16", lambda graphs: serve.Predictor(cfg, model, consts, graphs=graphs), cfg, rng, smi)
     graphed_requests(
         "int8c", lambda graphs: serve.Predictor(cfg, model, consts, qparams=qp, graphs=graphs), cfg, rng, smi,
     )
     print(f"[graphs] phase in {time.perf_counter() - t0:.1f} s")
-    return full
+    return dict(full, disk_per_replay=disk["per_replay"], eval_per_replay=ev["per_replay"])
 
 
 def main() -> int:
@@ -2917,6 +3206,8 @@ def main() -> int:
             replaces=f"indirect_learning_pose_shape_tpu/ops/kernels/{replaces}",
             launches=tr["launches"].get(name, 0),
             launches_graph_replay=graphed["per_replay"].get(name, 0),
+            launches_disk_graph_replay=graphed["disk_per_replay"].get(name, 0),
+            launches_eval_graph_replay=graphed["eval_per_replay"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),

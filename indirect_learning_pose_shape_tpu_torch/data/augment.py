@@ -146,6 +146,25 @@ def sample_draws(gen: torch.Generator, batch: int, cfg: AugmentConfig) -> dict[s
     return {"flip": flip, "scale": scale, "shift": shift}
 
 
+# The mirror's tables on the device, built once per (num_parts, convention,
+# pairs, keypoint count, device): a CUDA graph of a disk step cannot record
+# the host copy that building them makes.
+_TABLES: dict = {}
+
+
+def _flip_tables(num_parts: int, cfg: AugmentConfig, num_kp: int, device: torch.device):
+    """(part label permutation int32 [256], keypoint permutation int64 [K])
+    on `device`."""
+    key = (num_parts, cfg.part_convention, cfg.part_lr_pairs, num_kp, device)
+    if key not in _TABLES:
+        labels = part_label_flip_perm(num_parts, cfg.part_convention, cfg.part_lr_pairs)
+        _TABLES[key] = (
+            torch.as_tensor(labels, device=device),
+            torch.as_tensor(kp_flip_perm(num_kp), device=device).long(),
+        )
+    return _TABLES[key]
+
+
 def mirror_raw_batch(
     raw: dict, flip: torch.Tensor, cfg: AugmentConfig, num_parts: int = 24
 ) -> dict:
@@ -163,13 +182,10 @@ def mirror_raw_batch(
     f3 = flip[:, None, None]
     images = torch.where(flip[:, None, None, None], raw["images"].flip(2), raw["images"])
 
-    label_perm = torch.as_tensor(
-        part_label_flip_perm(num_parts, cfg.part_convention, cfg.part_lr_pairs), device=dev
-    )
+    label_perm, kperm = _flip_tables(num_parts, cfg, raw["kp2d"].shape[1], dev)
     masks = raw["masks"].to(torch.int32)
     masks = torch.where(f3, label_perm[masks.flip(2).long()], masks)
 
-    kperm = torch.as_tensor(kp_flip_perm(raw["kp2d"].shape[1]), device=dev).long()
     kp_m = raw["kp2d"][:, kperm]
     kp_m = torch.stack([W - 1.0 - kp_m[..., 0], kp_m[..., 1]], dim=-1)
     kp2d = torch.where(f3, kp_m, raw["kp2d"])

@@ -35,11 +35,24 @@ training path's own `train.preprocess_raw_batch` (no augmentation), the
 ragged tail dropped; the 3D metrics appear when the file carries gt_pose
 and gt_betas. `evaluate_preprocessed` (`--image-dir`) scores the host-
 preprocessed batches of an image directory: image-space metrics only.
+
+On the card each evaluator scores a batch as a CUDA graph, the
+counterpart of the reference's cached `jax.jit` evaluation functions: one
+graph per (evaluator, model and its tensors, consts, quantized encoder,
+config, int8 impl, batch layout), the 8 most recent kept. The stream's
+draws come from a generator registered with the graph and reseeded by
+(seed, i) for batch i; a disk batch is copied into the graph's static
+inputs. PA-MPJPE's batched 3x3 SVD (cuSOLVER) checks its status on the
+host, which a capture refuses, so the graph ends at the Procrustes
+covariance and the SVD and the alignment's tail run eagerly after each
+replay. Graphed and eager scores are equal bitwise (`chip_smoke.py`);
+`graphs=False` scores eagerly on the card, and the CPU always does.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import itertools
 import json
@@ -54,6 +67,7 @@ from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 from indirect_learning_pose_shape_tpu_torch.models import smpl as smpl_mod
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
+from indirect_learning_pose_shape_tpu_torch.utils import graphs as graphs_lib
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 
@@ -70,15 +84,28 @@ def mpjpe(pred_joints: torch.Tensor, gt_joints: torch.Tensor) -> torch.Tensor:
 def procrustes_align(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Similarity-align pred to gt per item (Umeyama, float32, batched SVD),
     with the reflection fix: the rotation keeps det +1. [B, N, 3] x2."""
+    return _procrustes_apply(*_procrustes_moments(pred, gt))
+
+
+def _procrustes_moments(pred: torch.Tensor, gt: torch.Tensor) -> tuple:
+    """The alignment up to its SVD: (centred pred, gt mean, covariance,
+    pred variance)."""
     mu_p = pred.mean(dim=1, keepdim=True)
     mu_g = gt.mean(dim=1, keepdim=True)
     pc, gc = pred - mu_p, gt - mu_g
     cov = torch.einsum("bni,bnj->bij", gc, pc) / pred.shape[1]
+    var_p = torch.mean(torch.sum(pc * pc, dim=-1), dim=1)
+    return pc, mu_g, cov, var_p
+
+
+def _procrustes_apply(pc, mu_g, cov, var_p) -> torch.Tensor:
+    """The alignment from its moments: the SVD of the covariance (on the
+    card it reads its status on the host, so no CUDA graph can hold it),
+    the rotation, the scale."""
     u, s, vt = torch.linalg.svd(cov)
     det = torch.linalg.det(u @ vt)
     d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
     rot = torch.einsum("bij,bj,bjk->bik", u, d, vt)
-    var_p = torch.mean(torch.sum(pc * pc, dim=-1), dim=1)
     scale = torch.sum(s * d, dim=-1) / (var_p + 1e-12)
     return scale[:, None, None] * torch.einsum("bij,bnj->bni", rot, pc) + mu_g
 
@@ -131,6 +158,13 @@ def _batch_metrics(
     `qenc` under `int8_impl`), and, where the batch has gt_pose and
     gt_betas, the 3D metrics against the ground-truth SMPL through
     `cfg.model.smpl_impl` (the LBS kernel on the card)."""
+    return _finish(*_metrics_on_device(model, consts, batch, cfg, qenc, int8_impl))
+
+
+def _metrics_on_device(model, consts, batch, cfg, qenc, int8_impl) -> tuple[dict, tuple | None]:
+    """`_batch_metrics` as far as a CUDA graph can record it: (the metrics
+    but PA-MPJPE, PA-MPJPE's Procrustes moments and the ground-truth joints
+    or None without ground truth)."""
     if qenc is None:
         outputs = net.forward_train(model, consts, batch["image"], cfg.model, train=False)
     else:
@@ -142,14 +176,128 @@ def _batch_metrics(
     err = torch.linalg.vector_norm(outputs["kp2d"] - batch["kp2d"], dim=-1)
     metrics["kp_err_px"] = torch.sum(err * vis) / torch.clamp(torch.sum(vis), min=1.0)
     if "gt_pose" not in batch or "gt_betas" not in batch:
-        return metrics
+        return metrics, None
     gt = smpl_mod.smpl_forward(
         consts.smpl, batch["gt_pose"], batch["gt_betas"], impl=cfg.model.smpl_impl
     )
     metrics["pve"] = pve(outputs["verts"], gt["verts"])
     metrics["mpjpe"] = mpjpe(outputs["kp3d"], gt["kp3d"])
-    metrics["pa_mpjpe"] = pa_mpjpe(outputs["kp3d"], gt["kp3d"])
-    return metrics
+    return metrics, (*_procrustes_moments(outputs["kp3d"], gt["kp3d"]), gt["kp3d"])
+
+
+def _finish(metrics: dict, moments: tuple | None) -> dict[str, torch.Tensor]:
+    """The metrics with PA-MPJPE from `moments`, eagerly (`_procrustes_apply`)."""
+    if moments is None:
+        return dict(metrics)
+    *align, gt = moments
+    return dict(metrics, pa_mpjpe=mpjpe(_procrustes_apply(*align), gt))
+
+
+# The evaluators' CUDA graphs, most recently used last: 8 kept, as the
+# reference keeps 8 of each evaluation executable (`functools.lru_cache`).
+_GRAPHS_KEPT = 8
+_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+def clear_graphs() -> None:
+    """Drop the evaluators' cached CUDA graphs, their memory pools and the
+    models they hold."""
+    _graphs.clear()
+
+
+def _device_fn(kind: str, model, consts, cfg, qenc, int8_impl, gen: torch.Generator):
+    """One batch's device work, `item -> _metrics_on_device(...)`: for the
+    stream (`kind` 'stream') the batch drawn from `gen`, seeded by the
+    caller, for a disk dataset ('dataset') the raw batch `item` cropped by
+    `train.preprocess_raw_batch` (no augmentation) with its ground truth
+    passed through, for host-preprocessed batches ('preprocessed') `item`."""
+
+    @torch.no_grad()
+    def fn(item):
+        if kind == "stream":
+            batch = train._draw_batch(gen, cfg.batch_size, consts, cfg)
+        elif kind == "dataset":
+            batch = dict(train.preprocess_raw_batch(item, cfg), **{k: item[k] for k in _GT if k in item})
+        else:
+            batch = item
+        return _metrics_on_device(model, consts, batch, cfg, qenc, int8_impl)
+
+    return fn
+
+
+_GT = ("gt_pose", "gt_betas")
+
+
+class _EvalGraph:
+    """One evaluator's batch as a CUDA graph: a call on `item` reseeds the
+    stream's generator by `item` or copies the disk batch `item` into the
+    static inputs, replays, and finishes PA-MPJPE eagerly. The first call
+    runs the batch eagerly on the side stream as the warm-up, keeps its
+    metrics, then captures. `held` keeps what the graph reads alive and
+    says which tensors it was captured with."""
+
+    def __init__(self, kind, model, consts, cfg, qparams, int8_impl, device, held: list):
+        # Built here and held: a replay reads this encoder's tensors.
+        self.qenc = None if qparams is None else quant.as_encoder(qparams, cfg.model.encoder, device)
+        self.kind, self.device, self.held = kind, device, held + [qparams, self.qenc]
+        self.gen = torch.Generator(device=device)
+        self.fn = _device_fn(kind, model, consts, cfg, self.qenc, int8_impl, self.gen)
+        self.inputs: dict | None = None
+        self.graph: graphs_lib.Graph | None = None
+
+    def __call__(self, item) -> dict[str, torch.Tensor]:
+        if self.kind == "stream":
+            self.gen.manual_seed(item)
+            arg = item
+        else:
+            if self.inputs is None:
+                self.inputs = {k: torch.empty_like(v) for k, v in item.items()}
+            for k, v in item.items():
+                self.inputs[k].copy_(v)
+            arg = self.inputs
+        if self.graph is None:
+            out = graphs_lib.warm_up(lambda: self.fn(arg), self.device)
+            self.graph = graphs_lib.capture(lambda: self.fn(arg), self.device, generators=(self.gen,))
+        else:
+            out = self.graph.replay()
+        return _finish(*out)
+
+
+def _graph_runner(kind: str, model, consts, cfg, qparams, int8_impl, device):
+    """`item -> metrics` through the cached graph of each batch layout
+    (`_EvalGraph`), captured anew where the model's parameters or buffers
+    are not the tensors a cached graph was captured with."""
+    tensors = [model, consts, *model.parameters(), *model.buffers()]
+    mine: dict = {}
+
+    def run(item):
+        layout = None if kind == "stream" else tuple((k, v.shape, v.dtype) for k, v in item.items())
+        if layout not in mine:
+            key = (kind, id(model), id(consts), id(qparams), cfg, int8_impl, layout)
+            entry = _graphs.pop(key, None)
+            if entry is None or not graphs_lib.same_tensors(entry.held[: len(tensors)], tensors):
+                entry = _EvalGraph(kind, model, consts, cfg, qparams, int8_impl, device, tensors)
+            _graphs[key] = entry
+            while len(_graphs) > _GRAPHS_KEPT:
+                _graphs.popitem(last=False)
+            mine[layout] = entry
+        return mine[layout](item)
+
+    return run
+
+
+def _eager_runner(kind: str, model, consts, cfg, qparams, int8_impl, device):
+    """`item -> metrics` eagerly, one host launch an op."""
+    qenc = None if qparams is None else quant.as_encoder(qparams, cfg.model.encoder, device)
+    gen = torch.Generator(device=device)
+    fn = _device_fn(kind, model, consts, cfg, qenc, int8_impl, gen)
+
+    def run(item):
+        if kind == "stream":
+            gen.manual_seed(item)
+        return _finish(*fn(item))
+
+    return run
 
 
 def evaluate(
@@ -160,30 +308,31 @@ def evaluate(
     seed: int = 123,
     qparams=None,
     int8_impl: str = "int8",
+    graphs: bool = True,
 ) -> dict[str, float]:
     """The mean of each metric over `num_batches` batches of `cfg.batch_size`
     from the evaluation stream of `seed` (batch i is `train.make_batch(seed,
     i, ...)`, the training stream's batch i of seed `seed`); with `qparams`,
-    of the int8 encoder under `int8_impl`."""
-    return _mean_metrics(
-        model, consts, cfg,
-        (train.make_batch(seed, i, cfg.batch_size, consts, cfg) for i in range(num_batches)),
-        qparams, int8_impl,
-    )
+    of the int8 encoder under `int8_impl`. On the card a batch is a graph
+    replay (`graphs=False`: eager)."""
+    seeds = (train.step_seed(seed, i) for i in range(num_batches))
+    return _mean_metrics(model, consts, cfg, "stream", seeds, qparams, int8_impl, graphs)
 
 
-def _mean_metrics(model, consts, cfg, batches, qparams=None, int8_impl="int8") -> dict[str, float]:
-    """The mean of each metric over `batches`, accumulated on the device and
-    read to the host once."""
+def _mean_metrics(model, consts, cfg, kind, items, qparams=None, int8_impl="int8", graphs=True) -> dict[str, float]:
+    """The mean of each metric over the batches of `items` (see
+    `_device_fn`), accumulated on the device in batch order and read to the
+    host once; through the cached graphs on the card unless `graphs` is
+    False."""
     if int8_impl not in quant.IMPLS:
         raise ValueError(f"int8_impl must be one of {quant.IMPLS}, got {int8_impl!r}")
-    qenc = None
-    if qparams is not None:
-        qenc = quant.as_encoder(qparams, cfg.model.encoder, consts.smpl.v_template.device)
+    device = consts.smpl.v_template.device
+    runner = _graph_runner if graphs and device.type == "cuda" else _eager_runner
+    run = runner(kind, model, consts, cfg, qparams, int8_impl, device)
     sums: dict[str, torch.Tensor] = {}
     n = 0
-    for batch in batches:
-        m = _batch_metrics(model, consts, batch, cfg, qenc, int8_impl)
+    for item in items:
+        m = run(item)
         sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
         n += 1
     if n == 0:
@@ -201,23 +350,22 @@ def evaluate_dataset(
     max_batches: int | None = None,
     qparams=None,
     int8_impl: str = "int8",
+    graphs: bool = True,
 ) -> dict[str, float]:
     """The mean metrics (of the int8 encoder with `qparams`) over epoch 0 of
     a disk dataset (`NpzDataset` or `ShardedNpzDataset`), at most
     `max_batches` batches, in its order: each raw batch prefetched to the
     model's device and cropped by `train.preprocess_raw_batch` without
     augmentation. The 3D metrics (PVE, MPJPE, PA-MPJPE) appear when the
-    dataset has gt_pose and gt_betas."""
-    has_gt = {"gt_pose", "gt_betas"} <= set(dataset.keys)
-    raw_keys = ("images", "masks", "kp2d", "kp_vis") + (("gt_pose", "gt_betas") if has_gt else ())
+    dataset has gt_pose and gt_betas. On the card a batch is a graph replay
+    (`graphs=False`: eager)."""
+    has_gt = set(_GT) <= set(dataset.keys)
+    raw_keys = ("images", "masks", "kp2d", "kp_vis") + (_GT if has_gt else ())
     raw = ({k: b[k] for k in raw_keys} for b in itertools.islice(dataset.epoch(0), max_batches or None))
     device = consts.smpl.v_template.device
     batches = dataset_lib.prefetch_to_device(raw, size=2, device=device)
     try:
-        return _mean_metrics(model, consts, cfg, (
-            dict(train.preprocess_raw_batch(r, cfg), **{k: r[k] for k in ("gt_pose", "gt_betas") if k in r})
-            for r in batches
-        ), qparams, int8_impl)
+        return _mean_metrics(model, consts, cfg, "dataset", batches, qparams, int8_impl, graphs)
     finally:
         batches.close()
 
@@ -230,19 +378,21 @@ def evaluate_preprocessed(
     max_batches: int | None = None,
     qparams=None,
     int8_impl: str = "int8",
+    graphs: bool = True,
 ) -> dict[str, float]:
     """The mean image-space metrics (of the int8 encoder with `qparams`)
     over one epoch (or `max_batches`) of a host-preprocessed stream
     (`data/image_dir.ImageDirDataset`), its batches prefetched to the
     model's device. An image directory carries no SMPL ground truth, so no
-    3D metric."""
+    3D metric. On the card a batch is a graph replay (`graphs=False`:
+    eager)."""
     limit = min(max_batches or dataset.steps_per_epoch(), dataset.steps_per_epoch())
     device = consts.smpl.v_template.device
     batches = dataset_lib.prefetch_to_device(
         itertools.islice(dataset.batches(), limit), size=2, device=device
     )
     try:
-        return _mean_metrics(model, consts, cfg, batches, qparams, int8_impl)
+        return _mean_metrics(model, consts, cfg, "preprocessed", batches, qparams, int8_impl, graphs)
     finally:
         batches.close()
 

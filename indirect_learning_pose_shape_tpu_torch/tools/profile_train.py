@@ -38,10 +38,12 @@ step (`--eager`: the eager `train.fused_step`, for comparison), then:
   of "other" in `by_category_ms`.
 
 With `--dataset` (an .npz file or a directory of shards) the step is the
-disk step instead (`train.data_train_step` on batches that
-`prefetch_to_device` stages from the dataset, as `train.fit_dataset` does,
-eager as `fit_dataset` runs it;
-`--augment` turns on the preset's mirror and crop jitter), and the result
+disk step instead, on batches that `prefetch_to_device` stages from the
+dataset, as `train.fit_dataset` does, on its route on the card:
+`train.compile_data_step`, one CUDA graph of the step (the batch copied into
+its static inputs) captured after an eager warm-up step and replayed once a
+step (`--eager`: the eager `train.data_train_step`); `--augment` turns on
+the preset's mirror and crop jitter. The result
 adds `h2d_ms_per_batch` (the side stream's copies, between CUDA events),
 `prefetch_wait_ms` (the host's median wait for a batch) and
 `preprocess_ms` (`train.preprocess_raw_batch` on one batch, between CUDA
@@ -100,7 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dataset", default=None, help="time the disk step on this dataset (.npz or shards)")
     ap.add_argument("--augment", action="store_true", help="with --dataset: mirror and crop jitter")
     ap.add_argument("--eager", action="store_true",
-                    help="time the eager fused_step instead of fit's CUDA graph route")
+                    help="time the eager step (fused_step, or data_train_step with --dataset) "
+                    "instead of the fit loops' CUDA graph route")
     ap.add_argument("--out", default="profile_train.json")
     args = ap.parse_args(argv)
     if args.augment and not args.dataset:
@@ -133,13 +136,19 @@ def main(argv=None) -> int:
             device="cuda", stats=stats,
         )
 
+        compiled = None if args.eager else train.compile_data_step(cfg, consts)
+
         def step():
-            return train.data_train_step(ts, next(batches), consts, cfg)
+            raw = next(batches)
+            return train.data_train_step(ts, raw, consts, cfg) if compiled is None else compiled(ts, raw)
     elif args.eager:
+        compiled = None
+
         def step():
             return train.fused_step(ts, consts, cfg)
     else:
-        step = functools.partial(train.compile_fused_step(cfg, consts), ts)
+        compiled = train.compile_fused_step(cfg, consts)
+        step = functools.partial(compiled, ts)
 
     for _ in range(args.warmup):
         step()
@@ -162,7 +171,7 @@ def main(argv=None) -> int:
         "device": smi_line(),
         "preset": args.preset,
         "batch_size": cfg.batch_size,
-        "route": "eager" if args.dataset or args.eager else "graph",
+        "route": "eager" if compiled is None else "graph",
         "step_ms_median": median,
         "step_ms_p90": float(np.percentile(times, 90)),
         "images_per_s": cfg.batch_size / median * 1e3,
@@ -175,8 +184,8 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    if isinstance(step, functools.partial):
-        result.update(capture_s=step.func.graph.seconds, pool_bytes=step.func.graph.pool_bytes)
+    if compiled is not None:
+        result.update(capture_s=compiled.graph.seconds, pool_bytes=compiled.graph.pool_bytes)
     if args.dataset:
         torch.cuda.synchronize()
         result["dataset"] = args.dataset

@@ -23,8 +23,10 @@ calibrated on 16 images of the stream at seed 999, under `--int8-impl`
 ('int8' by default; 'int8c', 'sim', 'simc'), with the sites matching
 `--keep-bf16` (names or prefixes, e.g. `stem s3`) kept in bf16.
 
-Each seed's metrics go to standard error. On the CPU (`--device cpu`) shrink
-the run with `--batch-size` and `--image-size`.
+Each seed's metrics go to standard error. On the card a batch is a replay
+of `evaluate`'s cached CUDA graph, captured once and reused over the seeds.
+On the CPU (`--device cpu`) shrink the run with `--batch-size` and
+`--image-size`.
 """
 
 from __future__ import annotations

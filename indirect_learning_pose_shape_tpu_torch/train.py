@@ -59,7 +59,12 @@ schedule fills between replays; the batch's draws come from one generator
 registered with the graph and reseeded by (seed, step) before each replay.
 `fit` runs the graph on the card, alone or on an NCCL mesh, and the eager
 `fused_step` on the CPU, on gloo meshes and under `--debug-nans`; its first
-log line (stderr) names the route. The disk paths stay eager.
+log line (stderr) names the route. The disk steps take the same routes
+(`compile_data_step`, the reference's `_data_step_jit` and `_step_jit`):
+on the card each prefetched batch is copied into the graph's static input
+buffers and one graph is replayed a step, its augmentation draws from a
+registered generator reseeded by (seed, step, 1), equal to the eager
+`data_train_step` (or `train_step`) bitwise.
 
 Several GPUs (`config5_data_parallel`; `num_devices`, `render_devices`):
 every rank runs this module on its rows of the global batch, over a mesh of
@@ -435,7 +440,9 @@ def fused_step(
     return terms
 
 
-def _graph_device(consts: net.ModelConsts, mesh, name: str) -> Optional[torch.device]:
+def _graph_device(
+    consts: net.ModelConsts, mesh, name: str, eager: str = "train.fused_step"
+) -> Optional[torch.device]:
     """The card a compiled step is captured on; None on the CPU, where it
     runs eagerly. A gloo mesh is refused: gloo's collectives run on the
     host, and a CUDA graph records device work only."""
@@ -443,8 +450,8 @@ def _graph_device(consts: net.ModelConsts, mesh, name: str) -> Optional[torch.de
     if mesh is not None and mesh.backend != "nccl":
         raise ValueError(
             f"{name} captures the step as a CUDA graph, which cannot record the "
-            f"{mesh.backend} backend's host collectives: run the eager train.fused_step "
-            "(train.fit does on such a mesh), or an NCCL mesh"
+            f"{mesh.backend} backend's host collectives: run the eager {eager} "
+            "(the train.fit_* loops do on such a mesh), or an NCCL mesh"
         )
     return dev if dev.type == "cuda" else None
 
@@ -563,11 +570,16 @@ class TrainStepGraph(_GraphedStep):
     """`compile_train_fns`'s `step_fn` on the card: `fn(ts, batch)` copies
     the batch into the graph's input buffers and replays one captured
     `train_step`; returns clones of the terms. A batch of other keys,
-    shapes or types is captured again, with its own buffers."""
+    shapes or types is captured again, with its own buffers. The copies run
+    on the current stream, so they follow whatever that stream waits on
+    (the prefetcher's copy event)."""
 
     def __init__(self, cfg, consts, mesh, device):
         super().__init__(cfg, consts, mesh, device)
         self.inputs: Optional[dict[str, torch.Tensor]] = None
+
+    def _device_step(self, ts: TrainState, inputs: dict) -> dict:
+        return _step_on_device(ts, inputs, self.consts, self.cfg, self.mesh)
 
     def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         layout = {k: (v.shape, v.dtype) for k, v in batch.items()}
@@ -577,10 +589,34 @@ class TrainStepGraph(_GraphedStep):
             self.inputs[k].copy_(v)
         if self._stale(ts):
             inputs = self.inputs
-            terms = self._capture(ts, lambda: _step_on_device(ts, inputs, self.consts, self.cfg, self.mesh))
+            terms = self._capture(ts, lambda: self._device_step(ts, inputs))
         else:
             terms = self._replay(ts)
         return {k: v.clone() for k, v in terms.items()}
+
+
+class DataStepGraph(TrainStepGraph):
+    """`compile_data_step`'s callable on the card: `fn(ts, batch)` copies a
+    prefetched batch into the graph's input buffers, reseeds the
+    augmentation generator by (seed, step, 1) and replays one captured disk
+    step; returns clones of the terms. The step is `data_train_step`'s
+    device work on a raw batch (the draws from the registered generator,
+    the rank's rows of them, `preprocess_raw_batch`, the band cut, the
+    update), or `_local_step`'s on a preprocessed one (`raw=False`)."""
+
+    def __init__(self, cfg, consts, mesh, device, raw: bool):
+        super().__init__(cfg, consts, mesh, device)
+        self.raw = raw
+
+    def _device_step(self, ts: TrainState, inputs: dict) -> dict:
+        batch = inputs
+        if self.raw:
+            batch = _disk_batch(inputs, self.cfg, self.mesh, lambda n: _draw_augment(self.gen, n, self.cfg))
+        return _step_on_device(ts, _local_batch(batch, self.mesh), self.consts, self.cfg, self.mesh)
+
+    def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        self.gen.manual_seed(step_seed(ts.seed, ts.step, _AUGMENT_STREAM))
+        return super().__call__(ts, batch)
 
 
 def compile_train_fns(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
@@ -597,6 +633,36 @@ def compile_train_fns(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=No
             lambda ts, batch: train_step(ts, batch, consts, cfg, mesh),
         )
     return _BatchGraph(cfg, consts, mesh, dev), TrainStepGraph(cfg, consts, mesh, dev)
+
+
+def compile_data_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None, raw: bool = True):
+    """The disk steps compiled, as the reference jits them: `fn(ts, batch)
+    -> terms` is `data_train_step` on a raw disk batch (its
+    `_data_step_jit`, `fit_dataset`'s step) or, with `raw=False`,
+    `_local_step` on a preprocessed one (its `_step_jit` as
+    `fit_preprocessed` calls it).
+
+    On the card (`DataStepGraph`): one step captured as a CUDA graph at
+    the first call, after a real step that is its warm-up, and replayed once
+    a step, its batch copied into static buffers and its augmentation draws
+    from a registered generator reseeded by (seed, step, 1), so the steps
+    equal the eager ones bitwise. A batch of another layout, or a state
+    whose optimizer state was replaced since, is captured again. Under an
+    NCCL mesh the graph records the collectives; a gloo mesh is refused
+    (ValueError). A capture that fails raises. On the CPU `fn` is the eager
+    step."""
+    eager_name = "train.data_train_step" if raw else "train.train_step"
+    dev = _graph_device(consts, mesh, "compile_data_step", eager_name)
+    if dev is None:
+        return _eager_data_step(cfg, consts, mesh, raw)
+    return DataStepGraph(cfg, consts, mesh, dev, raw)
+
+
+def _eager_data_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, raw: bool):
+    """`fn(ts, batch)`: the eager `data_train_step`, or `_local_step` with
+    `raw=False`."""
+    eager = data_train_step if raw else _local_step
+    return lambda ts, batch: eager(ts, batch, consts, cfg, mesh)
 
 
 def _fold_num_steps(cfg: configs.TrainConfig, num_steps: Optional[int]):
@@ -652,6 +718,13 @@ def augment_draws(
     from a generator seeded by (seed, step, 1): a function of the step, so a
     resumed run replays them."""
     gen = torch.Generator(device=device).manual_seed(step_seed(seed, step, _AUGMENT_STREAM))
+    return _draw_augment(gen, batch_size, cfg)
+
+
+def _draw_augment(gen: torch.Generator, batch_size: int, cfg: configs.TrainConfig) -> dict[str, torch.Tensor]:
+    """`augment_draws` from `gen`, seeded by the caller: a CUDA graph records
+    the draws of a generator registered with it, and the caller reseeds it
+    before each replay."""
     return augment.sample_draws(gen, batch_size, cfg.augment)
 
 
@@ -704,20 +777,33 @@ def data_train_step(
     `train_step`. Under `mesh`, `raw` is this rank's rows of the global
     batch: the draws are the global batch's, cut to those rows, and under a
     render axis the targets are cut to this rank's band of image rows."""
+    dev = raw["images"].device
+    batch = _disk_batch(raw, cfg, mesh, lambda n: augment_draws(ts.seed, ts.step, n, cfg, dev))
+    return _local_step(ts, batch, consts, cfg, mesh)
+
+
+def _disk_batch(raw: dict, cfg: configs.TrainConfig, mesh, draw: Callable[[int], dict]) -> dict:
+    """`preprocess_raw_batch` of this rank's raw rows, with the
+    augmentation draws `draw(global batch)` cut to those rows when
+    `cfg.augment.enabled`."""
     draws = None
     if cfg.augment.enabled:
-        global_batch = raw["images"].shape[0] * (1 if mesh is None else mesh.n_data)
-        draws = augment_draws(ts.seed, ts.step, global_batch, cfg, raw["images"].device)
+        draws = draw(raw["images"].shape[0] * (1 if mesh is None else mesh.n_data))
         if mesh is not None:
             draws = mesh_lib.shard_batch(draws, mesh)
-    return _local_step(ts, preprocess_raw_batch(raw, cfg, draws), consts, cfg, mesh)
+    return preprocess_raw_batch(raw, cfg, draws)
+
+
+def _local_batch(batch: dict, mesh) -> dict:
+    """This rank's part of a whole-image batch: under a render axis, its
+    targets cut to the rank's band of rows."""
+    rows = render_sp.constrainer(mesh)
+    return batch if rows is None else rows.targets(batch)
 
 
 def _local_step(ts: TrainState, batch: dict, consts, cfg: configs.TrainConfig, mesh=None) -> dict:
-    """`train_step` on this rank's rows of a whole-image batch: under a
-    render axis, its targets cut to the rank's band of rows first."""
-    rows = render_sp.constrainer(mesh)
-    return train_step(ts, batch if rows is None else rows.targets(batch), consts, cfg, mesh)
+    """`train_step` on this rank's rows of a whole-image batch (`_local_batch`)."""
+    return train_step(ts, _local_batch(batch, mesh), consts, cfg, mesh)
 
 
 def _auto_mesh(cfg: configs.TrainConfig, device: torch.device | str = "cuda"):
@@ -754,21 +840,33 @@ def _auto_mesh(cfg: configs.TrainConfig, device: torch.device | str = "cuda"):
     return mesh_lib.make_mesh(n, device)
 
 
-def _fit_route(consts: net.ModelConsts, mesh) -> str:
-    """How `fit` runs its steps, said in its first log line: the CUDA graph
-    of `compile_fused_step` wherever it can capture (the card, alone or on
-    an NCCL mesh), else the eager `fused_step`: on the CPU, on a gloo mesh
-    (host collectives), and under anomaly mode (`--debug-nans`), which
-    checks every op on the host as it runs."""
+def _fit_route(
+    consts: net.ModelConsts, mesh, graph: str = "compile_fused_step", eager: str = "fused_step"
+) -> str:
+    """How a `fit_*` loop runs its steps, said in its first log line: the
+    CUDA graph of `graph` (`compile_fused_step`, or `compile_data_step` for
+    the disk steps) wherever it can capture (the card, alone or on an NCCL
+    mesh), else the eager step `eager`: on the CPU, on a gloo mesh (host
+    collectives), and under anomaly mode (`--debug-nans`), which checks
+    every op on the host as it runs."""
     if consts.smpl.v_template.device.type != "cuda":
-        return "eager fused_step (CPU)"
+        return f"eager {eager} (CPU)"
     if mesh is not None and mesh.backend != "nccl":
-        return f"eager fused_step ({mesh.backend} mesh: host collectives)"
+        return f"eager {eager} ({mesh.backend} mesh: host collectives)"
     if torch.is_anomaly_enabled():
-        return "eager fused_step (anomaly mode, --debug-nans)"
-    return "graph: compile_fused_step, one CUDA graph replay a step" + (
+        return f"eager {eager} (anomaly mode, --debug-nans)"
+    return f"graph: {graph}, one CUDA graph replay a step" + (
         "" if mesh is None else f" (NCCL mesh of {mesh.world})"
     )
+
+
+# The route names of each loop: (graph, eager step), by `_run`'s `raw`
+# (None: the synthetic stream).
+_ROUTE_NAMES = {
+    None: ("compile_fused_step", "fused_step"),
+    True: ("compile_data_step", "data_train_step"),
+    False: ("compile_data_step(raw=False)", "train_step"),
+}
 
 
 def _run(
@@ -778,15 +876,18 @@ def _run(
     device: torch.device | str,
     log: Optional[Callable[[dict], None]],
     source: Optional[Callable[[int, torch.device, Optional[mesh_lib.Mesh]], Iterator[dict]]] = None,
-    step: Callable = train_step,
+    raw: bool = True,
 ) -> tuple[TrainState, dict[str, float]]:
     """The loop of every `fit_*`: init, resume, steps, logs, checkpoints.
     Without `source` the steps are `fused_step` calls on the synthetic
-    stream; with it, `source(start step, device, mesh)` gives the device
-    batches from the resumed step and each goes through `step(ts, batch,
-    consts, cfg, mesh)`, one step a call. Under a mesh (`_auto_mesh`) the
-    ranks run on `mesh.device`, rank 0 alone writes checkpoints, metrics and
-    `log`, and the ranks meet at the end, once the last checkpoint is on disk."""
+    stream (`compile_fused_step`'s graph on the card); with it, `source(start
+    step, device, mesh)` gives the device batches from the resumed step and
+    each is one disk step, `data_train_step` on a raw batch or `_local_step`
+    on a preprocessed one (`raw=False`), `compile_data_step`'s graph on the
+    card. `_fit_route` picks the route and the first log line names it.
+    Under a mesh (`_auto_mesh`) the ranks run on `mesh.device`, rank 0 alone
+    writes checkpoints, metrics and `log`, and the ranks meet at the end,
+    once the last checkpoint is on disk."""
     cfg, num_steps = _fold_num_steps(cfg, num_steps)
     if source is not None and cfg.steps_per_call != 1:
         raise ValueError("steps_per_call applies to synthetic-stream training only")
@@ -806,13 +907,14 @@ def _run(
             file=sys.stderr,
         )
     batches = None if source is None else source(start, consts.smpl.v_template.device, mesh)
+    route = _fit_route(consts, mesh, *_ROUTE_NAMES[None if source is None else raw])
+    if lead:
+        print(f"fit: {route}", file=sys.stderr)
     step_fn = None
-    if source is None:
-        route = _fit_route(consts, mesh)
-        if lead:
-            print(f"fit: {route}", file=sys.stderr)
-        if route.startswith("graph"):
-            step_fn = compile_fused_step(cfg, consts, mesh)
+    if route.startswith("graph"):
+        step_fn = compile_fused_step(cfg, consts, mesh) if source is None else compile_data_step(cfg, consts, mesh, raw)
+    elif source is not None:
+        step_fn = _eager_data_step(cfg, consts, mesh, raw)
     writer = (
         metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
         if lead else metrics.MetricsWriter(print_every=0)
@@ -829,7 +931,7 @@ def _run(
                 else:
                     terms = fused_step(ts, consts, dataclasses.replace(cfg, steps_per_call=k), mesh)
             else:
-                terms = step(ts, next(batches), consts, cfg, mesh)
+                terms = step_fn(ts, next(batches))
             if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:
                 values = writer.write(ts.step - 1, terms)
                 if log is not None and lead:
@@ -895,7 +997,8 @@ def fit_dataset(
     `ShardedNpzDataset`) as `fit` does on the stream: `dataset.batches`
     from the resumed step, filtered to `dataset_pulls` before the prefetch
     (so unused arrays never cross to the card), staged by
-    `prefetch_to_device` two batches ahead, each through `data_train_step`.
+    `prefetch_to_device` two batches ahead, each through `data_train_step`
+    (on the card `compile_data_step`'s graph of it, one replay a step).
     Under a mesh the dataset gives global batches (`cfg.batch_size`) and
     each rank stages only its rows."""
     pulls = dataset_pulls(cfg, getattr(dataset, "keys", frozenset()))
@@ -905,7 +1008,7 @@ def fit_dataset(
         rows = None if mesh is None else mesh.batch_rows(cfg.batch_size)
         return dataset_lib.prefetch_to_device(raw, size=2, device=dev, rows=rows)
 
-    return _run(cfg, num_steps, asset, device, log, source, data_train_step)
+    return _run(cfg, num_steps, asset, device, log, source)
 
 
 def fit_preprocessed(
@@ -918,7 +1021,8 @@ def fit_preprocessed(
 ) -> tuple[TrainState, dict[str, float]]:
     """Train on a stream of host-preprocessed batches at model resolution
     (`data/image_dir.ImageDirDataset`), prefetched to the card, each through
-    `train_step`. Augmentation is the dataset's own (the mirror acts on the
+    `train_step` (on the card `compile_data_step(raw=False)`'s graph of it,
+    one replay a step). Augmentation is the dataset's own (the mirror acts on the
     source images before the host crop), so `cfg.augment.enabled` over a
     dataset that does not augment is refused rather than ignored."""
     if cfg.augment.enabled and getattr(dataset, "augment", None) is None:
@@ -934,7 +1038,7 @@ def fit_preprocessed(
         rows = None if mesh is None else mesh.batch_rows(cfg.batch_size)
         return dataset_lib.prefetch_to_device(dataset.batches(start), size=2, device=dev, rows=rows)
 
-    return _run(cfg, num_steps, asset, device, log, source, _local_step)
+    return _run(cfg, num_steps, asset, device, log, source, raw=False)
 
 
 def _weights(spec_list, base: tuple, error) -> tuple:

@@ -23,7 +23,11 @@ share:
 
 A capture records device work only: a call whose host code copies a host
 value to the card, reads a device value on the host or synchronises fails
-to capture, and the failure raises. Nothing here falls back to eager.
+to capture, and the failure raises. Nothing here falls back to eager. The
+check is the capturing thread's own (`capture_error_mode="thread_local"`):
+another thread may go on with its CUDA work on its own stream meanwhile, as
+`data/dataset.prefetch_to_device` pins and copies the next batch while a
+disk step or an evaluation batch is captured.
 """
 
 from __future__ import annotations
@@ -122,7 +126,7 @@ def capture(
     t0 = time.perf_counter()
     launches: dict = {}
     with record_launches(launches):
-        with torch.cuda.graph(graph, pool=pool, stream=side_stream(device)):
+        with torch.cuda.graph(graph, pool=pool, stream=side_stream(device), capture_error_mode="thread_local"):
             outputs = fn()
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0

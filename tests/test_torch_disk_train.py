@@ -142,10 +142,13 @@ def test_mirror_with_3d_targets_is_refused(data, keys, refused):
 
 @pytest.fixture(scope="module")
 def steps(data, tiny_asset):
-    """Three augmented disk steps of the reference's `data_train_step` from
-    its initial parameters (IEF output layer scaled down so the bodies stay
-    in frame), and the port's from the same parameters on the same raw
-    batches with the reference's draws injected."""
+    """Three augmented disk steps of the reference's jitted disk step
+    (`_data_step_jit`, what its `fit_dataset` runs) from its initial
+    parameters (IEF output layer scaled down so the bodies stay in frame),
+    and the port's from the same parameters on the same raw batches with
+    the reference's draws injected, by each route: "eager" (`train_step` on
+    `preprocess_raw_batch`) and "compile_data_step" (the fit loop's step,
+    the draws injected where its graph draws them, `_draw_augment`)."""
     jcfg = _jcfg()
     ts, jconsts = jtrain.init_state(jcfg, tiny_asset)
     params = jax.tree.map(np.asarray, ts.params)
@@ -154,30 +157,40 @@ def steps(data, tiny_asset):
     ts = dataclasses.replace(ts, params=jax.tree.map(jnp.asarray, params))
     state = jax.tree.map(np.asarray, ts.model_state)
     rng = np.asarray(ts.rng)
-    step = jax.jit(lambda ts, raw: jtrain.data_train_step(ts, raw, jconsts, jcfg))
     raws = [_raw(data["arrays"], np.arange(B * i, B * i + B)) for i in range(STEPS)]
     ref = []
     for raw in raws:
-        ts, terms = step(ts, {k: jnp.asarray(v) for k, v in raw.items()})
+        ts, terms = jtrain._data_step_jit(ts, {k: jnp.asarray(v) for k, v in raw.items()}, jconsts,
+                                          jtrain._graph_cfg(jcfg), None)
         ref.append({k: float(v) for k, v in terms.items()})
 
     cfg = _cfg()
-    model, consts = net.init(tiny_asset, cfg.model, seed=1, device="cpu")
-    convert.load_jax_params(model, params, state)
-    tstate = train.TrainState(model, train.make_optimizer(model, cfg), 0, 0)
-    got = []
-    for i, raw in enumerate(raws):
-        draws = _jax_draws(jax.random.fold_in(rng, i), jcfg.augment, B)
-        terms = train.train_step(tstate, train.preprocess_raw_batch(_t(raw), cfg, draws), consts, cfg)
-        got.append({k: float(v) for k, v in terms.items()})
+    draws = [_jax_draws(jax.random.fold_in(rng, i), jcfg.augment, B) for i in range(STEPS)]
+    got = {}
+    for route in ("eager", "compile_data_step"):
+        model, consts = net.init(tiny_asset, cfg.model, seed=1, device="cpu")
+        convert.load_jax_params(model, params, state)
+        tstate = train.TrainState(model, train.make_optimizer(model, cfg), 0, 0)
+        fn = train.compile_data_step(cfg, consts)
+        got[route] = []
+        for raw, d in zip(raws, draws):
+            if route == "eager":
+                terms = train.train_step(tstate, train.preprocess_raw_batch(_t(raw), cfg, d), consts, cfg)
+            else:
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(train, "_draw_augment", lambda gen, n, cfg, d=d: d)
+                    terms = fn(tstate, _t(raw))
+            got[route].append({k: float(v) for k, v in terms.items()})
     return ref, got
 
 
-def test_data_train_step_loss_tracks_jax(steps):
+@pytest.mark.parametrize("route", ["eager", "compile_data_step"])
+def test_data_train_step_loss_tracks_jax(steps, route):
     """The total loss of each of three steps within rtol 1e-3, and the first
     step's every term within 1e-4 relative (its inputs differ from JAX's by
-    the crop's rounding alone)."""
-    ref, got = steps
+    the crop's rounding alone), for the port's eager step and the fit
+    loop's compiled one (on the CPU, the eager code a graph records)."""
+    ref, got = steps[0], steps[1][route]
     assert set(got[0]) == set(ref[0])
     np.testing.assert_allclose([g["total"] for g in got], [r["total"] for r in ref], rtol=1e-3)
     for k, v in ref[0].items():
