@@ -89,19 +89,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
    8, 32, 128 (and a padded 3), bf16 and int8c: every output bitwise the
    eager Predictor's, an earlier request's outputs unchanged by later
    replays, 1 LBS launch a request, request median and p90 both routes.
-7. Separable raster (the reference's default route) on the training
+7. The presets no other phase trains (`presets_phase`): config1_single
+   (b1), config2_smpl_batch (b64), config3_render (b32, the silhouette
+   losses alone), config4_r34, config4_large (ResNet-50 bottleneck, rot6d),
+   config4_parts31 (31 classes, 7 with no vertex) at b32 and config4_b128,
+   each at full width (256², V=6890, its depth and parts, seed-0 weights,
+   IEF output x 0.01): `train.fit` for 3 steps, its route line naming the
+   graph and its state bitwise an eager run's; `compile_fused_step`'s 2
+   replays after the warm-up and capture against eager `fused_step`s,
+   terms and state bitwise, each replay's launches the eager step's (2
+   LBS, 2 raster forward, 1 raster backward); the graphed step's host wall,
+   img/s, device ms over back-to-back replays, capture seconds, pool and
+   fit's peak memory above what earlier phases hold. For config3_render, config4_parts31 and config4_b128
+   both raster kernels on the step's own inputs and loss cotangent against
+   the culled plain versions (exact zeros in the empty classes' planes and
+   the padding slots' gradient), timed beside their bound. Then
+   config4_large's model served through a `Predictor` at buckets 1 and 32:
+   shapes, graphed against eager bitwise, padding, the float32 encoder
+   across buckets. Each preset's graphs are freed before the next.
+8. Separable raster (the reference's default route) on the training
    phase's slots and cotangent: 'highest' against the exact twin, 'high', 'default'
    and the bf16 training scores against 'highest'; the bf16 forward and
    forward + backward timed beside the kernels; and the step's loss terms
    with `raster_impl='separable'` against the kernels'.
-8. The config4_mixed recipe at full width (ResNet-34, rot6d, b32, cosine
+9. The config4_mixed recipe at full width (ResNet-34, rot6d, b32, cosine
    warm-up, clip 1.0, the 3D weights, EMA 0.999): after a warm-up, counted
    fused steps (2 LBS, 2 raster forward, 1 raster backward launches each),
    one call of 4 steps (`steps_per_call`), then `evaluate` on 4 x 32 images
    of the model (its own counted launches: 3 LBS and 2 raster forward a
    batch) and of its EMA, and of the model with the plain versions forced,
    which must agree with the kernels' metrics.
-9. The config4_robust recipe at full width (config4_mixed's, on hard
+10. The config4_robust recipe at full width (config4_mixed's, on hard
    z-buffered targets with textured backgrounds, palette jitter, shading
    and occluders; EMA 0.999): the hard raster on the step's bodies against
    the CPU run of the same function and the float64 oracle, timed dense and
@@ -115,7 +133,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the JSONL and TensorBoard files read back; `tools/quality_eval.py` on the
    checkpoint and its EMA on the plain, hard and hardapp suites (3 seeds x 1
    batch), and the kernels against the plain versions on hardapp.
-10. Disk data at full width (config4_full's model, b32, 256² crops from a
+11. Disk data at full width (config4_full's model, b32, 256² crops from a
    dataset at 320²): the native host preprocessor built with g++ and
    loaded (`USE_NATIVE`), bitwise against its numpy versions on 32 ragged
    images; a 128-example dataset written by `make_synthetic_dataset` (its
@@ -134,7 +152,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    against the plain versions on its first batch; the image-directory path
    (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
    line saying which held.
-11. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
+12. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
    16 synthetic images (seed 999), the qparams file read back bitwise, a
    `keep_sites=('stem',)` variant; a `Predictor(qparams)` per impl
    (int8, int8c, sim, simc) at batches 1, 8, 32, 128: each site's int8
@@ -153,7 +171,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    LBS, raster forward and raster backward launch a step; a profiled
    window); `train.init_state` from a pretrained npz and a mean-parameter
    file written in the phase.
-12. Multi-GPU training on the one card (`parallel_phase`, last):
+13. Multi-GPU training on the one card (`parallel_phase`, last):
    config5_data_parallel (ResNet-18, global batch 64, 256²). NCCL at world
    size 1 in this process: step 1 through the mesh against the no-mesh
    step (rtol 1e-6; it reads bitwise), 3 steps each way in turns (host
@@ -186,7 +204,9 @@ The last three lines of standard output are the kernel record
 training main path, per replay of the graphed config4_full step
 (`launches_graph_replay`), per replay of the graphed disk step
 (`launches_disk_graph_replay`) and of a graphed plain-suite evaluation
-batch (`launches_eval_graph_replay`), on the config4_mixed steps and in its evaluation, on
+batch (`launches_eval_graph_replay`), per replay of each preset's graphed
+step in the presets phase (`launches_presets`) and in config4_large's
+served requests there (`launches_presets_serve`), on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
 requests and their evaluation (`launches_int8`), in the example
@@ -2664,13 +2684,15 @@ def wall_stats(times: list) -> str:
     return f"median {statistics.median(times):.3f} ms, p90 {float(np.percentile(times, 90)):.3f} ms"
 
 
-def graphed_steps(name, cfg, asset, steps: int, smi, timed: int = 0) -> dict:
+def graphed_steps(name, cfg, asset, steps: int, smi, timed: int = 0, keep: bool = False) -> dict:
     """`steps` calls of `compile_fused_step` (the first one the eager
     warm-up step and the capture, the rest replays) against as many eager
     `fused_step` calls from the same state: every step's terms and the
     final state (parameters, BN buffers, Adam's moments and counts, rates,
-    EMA) bitwise, and each call's launches exactly the eager step's. With
-    `timed`, host wall per step of both routes in turns."""
+    EMA) bitwise, and each call's launches exactly the eager step's, which
+    are the preset's. With `timed`, host wall per step of both routes in
+    turns. With `keep`, the result also holds the compiled step, both
+    states and the consts (`fn`, `ts_g`, `ts_e`, `consts`)."""
     ts_g, consts = scaled_state(cfg, asset, "cuda")
     ts_e, _ = scaled_state(cfg, asset, "cuda")
     same_state(run_state(ts_g), run_state(ts_e), True, name, "initial state")
@@ -2682,13 +2704,19 @@ def graphed_steps(name, cfg, asset, steps: int, smi, timed: int = 0) -> dict:
         tg = fn(ts_g)
         torch.cuda.synchronize()
         launches.append(_build.counts())
+        _build.reset_counts()
         te = train.fused_step(ts_e, consts, cfg)
+        torch.cuda.synchronize()
+        eager = _build.counts()
         same_state(te, tg, True, f"{name} step {i} terms", "graphed step")
-        check(launches[-1] == per,
-              f"{name}: graphed call {i} launched {launches[-1]}, the eager step {per}")
+        check(eager == per, f"{name}: eager step {i} launched {eager}, not {per}")
+        check(launches[-1] == eager,
+              f"{name}: graphed call {i} launched {launches[-1]}, the eager step {eager}")
     same_state(run_state(ts_e), run_state(ts_g), True, name, "graphed run's state")
     check(fn.captures == 1, f"{name}: {fn.captures} captures in {steps} calls")
     out = {"capture_s": fn.graph.seconds, "pool_bytes": fn.graph.pool_bytes, "per_replay": launches[-1]}
+    if keep:
+        out.update(fn=fn, ts_g=ts_g, ts_e=ts_e, consts=consts)
     msg = (
         f"[graphs] {name} B={cfg.batch_size}: {steps} graphed steps (1 eager warm-up + capture, "
         f"{steps - 1} replays) equal {steps} eager steps bitwise (terms each step; parameters, BN "
@@ -3155,6 +3183,211 @@ def graphs_phase(cfg, model, consts, asset, rng, smi) -> dict:
     return dict(full, disk_per_replay=disk["per_replay"], eval_per_replay=ev["per_replay"])
 
 
+# --- The presets that no other phase trains, on fit's graph route. ---------
+
+PRESET_RUNS = (
+    "config1_single", "config2_smpl_batch", "config3_render", "config4_r34",
+    "config4_large", "config4_parts31", "config4_b128",
+)
+PRESET_STEPS = 3  # fit's budget; graphed steps (1 eager warm-up + capture, 2 replays) against eager ones
+PRESET_TIMED = 10  # graph replays timed: host wall of each, then back to back between CUDA events
+PRESET_KERNELS = ("config3_render", "config4_parts31", "config4_b128")  # raster kernels vs plain versions
+PRESET_SERVE = "config4_large"  # its model served through a Predictor's bucket graphs
+PRESET_BUCKETS = (1, 32)
+
+
+def preset_raster(name, cfg, ts, consts, smi) -> dict:
+    """Both raster kernels on a preset's own step inputs (the model of `ts`,
+    whose BN buffers move, on the batch of its next step; the cotangent of
+    the preset's own loss) against the culled plain versions, with exact
+    zeros in the score planes of classes with no slot and in the gradient
+    of every padding slot; each kernel timed and bounded on these inputs."""
+    B, size = cfg.batch_size, cfg.model.image_size
+    layout, rcfg = consts.part_layout, cfg.model.raster
+    C, S, real = layout.num_parts, layout.seg_size, layout.real
+    batch = train.make_batch(cfg.seed, ts.step, B, consts, cfg)
+    out = net.forward_train(ts.model, consts, batch["image"], cfg.model, probs=False)
+    targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
+    total, _ = losses.total_loss(out, targets, cfg.loss_weight_dict, size)
+    (g,) = torch.autograd.grad(total, out["score_cp"])
+    g = g.reshape(B, C, size, size).contiguous()
+    vx = raster.gather_class_sorted(out["verts2d"].detach(), layout)
+    vt = vx.transpose(1, 2).contiguous()
+    del out, total
+    with torch.no_grad():
+        fk = raster_cuda.raster_fwd_cuda(vt, real, C, S, rcfg)
+        fc = raster_cuda.raster_scores_culled_torch(vx, real, C, S, rcfg)
+        bk = raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg)
+        bc = raster_cuda.raster_scores_bwd_culled_torch(vx, g, real, C, S, rcfg)
+    torch.cuda.synchronize()
+    f_err, b_err = norm_err(fk, fc), norm_err(bk, bc)
+    check(f_err <= GRAD_TOL, f"{name}: raster forward kernel vs culled plain version at B={B}: {f_err}")
+    check(b_err <= GRAD_TOL, f"{name}: raster backward kernel vs culled plain version at B={B}: {b_err}")
+    check(float(fk.amax()) > 0 and float(bk.abs().max()) > 0, f"{name}: a raster kernel's output is all zero")
+    empty = real == 0
+    check(bool((fk[:, empty] == 0).all()) and bool((fc[:, empty] == 0).all()),
+          f"{name}: the score planes of the {int(empty.sum())} classes with no slot are not 0")
+    pad = (torch.arange(S, device=real.device)[None, :] >= real[:, None]).reshape(C * S)
+    check(bool((bk[:, :, pad] == 0).all()) and bool((bc[:, :, pad] == 0).all()),
+          f"{name}: the gradient of the padding slots is not 0")
+    work = raster_work(vx, layout, rcfg)
+    fb = raster_bound(vx, layout, rcfg, work, backward=False)
+    bb = raster_bound(vx, layout, rcfg, work, backward=True)
+    with torch.no_grad():
+        f_ms = device_ms(lambda: raster_cuda.raster_fwd_cuda(vt, real, C, S, rcfg), 20)
+        b_ms = device_ms(lambda: raster_cuda.raster_bwd_cuda(vt, g, real, C, S, rcfg), 20)
+    print(
+        f"[presets] {name} raster kernels on the step's prediction, B={B}, C={C} ({int(empty.sum())} with no "
+        f"slot), S={S}, cotangent of {'+'.join(k for k, w in cfg.loss_weights if w)}: normalised err forward "
+        f"{f_err:.3e}, backward {b_err:.3e} against the culled plain versions; the empty classes' planes and "
+        f"{int(pad.sum()) * B * 2} padding gradient entries exactly 0; forward {f_ms:.4f} ms (bound "
+        f"{fb['bound_ms']:.4f} ms, {fb['bound_by']}), backward {b_ms:.4f} ms (bound {bb['bound_ms']:.4f} ms, "
+        f"{bb['bound_by']}); pairs {work['pairs']} needed, {work['pairs_in_kernel_boxes']} computed [{smi}]"
+    )
+    return {"fwd_err": f_err, "bwd_err": b_err, "fwd_ms": f_ms, "bwd_ms": b_ms,
+            "fwd_bound_ms": fb["bound_ms"], "bwd_bound_ms": bb["bound_ms"]}
+
+
+def preset_serving(asset, smi) -> dict:
+    """`PRESET_SERVE`'s model (seed 0, IEF output x 0.01) through a
+    `Predictor` with bucket graphs at PRESET_BUCKETS: requests of 1, 3 (padded
+    into 32) and 32, every output finite and of its shape, bitwise the eager
+    Predictor's, one LBS launch a request; the padded rows against each
+    image alone in the same bucket at TOL. Across buckets (32 against 1) the
+    bf16 encoder's convolutions round differently (cuDNN picks other
+    algorithms per batch), so the same model with a float32 encoder is held
+    there at TOL and the bf16 gap printed beside it. Request median per
+    bucket."""
+    cfg = configs.PRESETS[PRESET_SERVE].model
+    f32 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, compute_dtype=torch.float32))
+    model, consts = predict.load_model(cfg, asset=asset, seed=0, device="cuda")
+    with torch.no_grad():
+        model.ief.layers[-1].weight.mul_(0.01)
+    p = serve.Predictor(cfg, model, consts, buckets=PRESET_BUCKETS)
+    p_e = serve.Predictor(cfg, model, consts, buckets=PRESET_BUCKETS, graphs=False)
+    t0 = time.perf_counter()
+    p.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.RandomState(7)
+    size, J, V = cfg.image_size, consts.smpl.num_joints, consts.smpl.num_verts
+    reqs = {n: rng.uniform(-1, 1, (n, size, size, 3)).astype(np.float32) for n in (1, 3, 32)}
+    _build.reset_counts()
+    outs = {n: {k: v.clone() for k, v in p(x).items()} for n, x in reqs.items()}
+    torch.cuda.synchronize()
+    launches = _build.counts()
+    check(launches == {lbs_cuda.KERNEL: len(reqs)}, f"{PRESET_SERVE} Predictor: {len(reqs)} requests launched {launches}")
+    for n, out in outs.items():
+        shapes = {
+            "theta": (n, cfg.ief.theta_dim), "rotmats": (n, J, 3, 3), "betas": (n, 10), "cam": (n, 3),
+            "verts": (n, V, 3), "joints": (n, J, 3), "kp3d": (n, 19, 3), "kp2d": (n, 19, 2),
+        }
+        for k, shape in shapes.items():
+            check(tuple(out[k].shape) == shape, f"{PRESET_SERVE} {k} shape {tuple(out[k].shape)} != {shape}")
+        for k, v in out.items():
+            check(v.shape[0] == n and bool(torch.isfinite(v).all()), f"{PRESET_SERVE} {k} (batch {n})")
+        same_state(p_e(reqs[n]), out, True, f"request {n}", f"{PRESET_SERVE} graphed request")
+    half = 0.5 * (size - 1)
+
+    def row_err(rows: dict, fn) -> float:
+        """Max error of the 3 rows of `rows` against each image run alone by
+        `fn`, every output; kp2d in units of half the image."""
+        err = 0.0
+        for i in range(3):
+            alone = fn(reqs[3][i : i + 1])
+            for k, v in rows.items():
+                err = max(err, max_err(v[i : i + 1], alone[k]) / (half if k == "kp2d" else 1.0))
+        return err
+
+    same_bucket = serve.Predictor(cfg, model, consts, buckets=(PRESET_BUCKETS[-1],))
+    pad_err, bf16_gap = row_err(outs[3], same_bucket), row_err(outs[3], p)
+    check(pad_err <= TOL, f"{PRESET_SERVE}: padded rows differ from the images alone in their bucket: {pad_err}")
+    del same_bucket
+    model32, _ = predict.load_model(f32, asset=asset, seed=0, device="cuda")
+    with torch.no_grad():
+        model32.ief.layers[-1].weight.mul_(0.01)
+    same_state(model.state_dict(), model32.state_dict(), True, PRESET_SERVE, "float32-encoder model's weights")
+    p32 = serve.Predictor(f32, model32, consts, buckets=PRESET_BUCKETS)
+    f32_gap = row_err({k: v.clone() for k, v in p32(reqs[3]).items()}, p32)
+    check(f32_gap <= TOL, f"{PRESET_SERVE} float32 encoder: bucket 32 rows differ from bucket 1's: {f32_gap}")
+    del p32, model32
+    ms = {n: request_ms(lambda: p(reqs[n]), 20) for n in PRESET_BUCKETS}
+    print(
+        f"[presets] {PRESET_SERVE} served (ResNet-{cfg.encoder.depth}, {cfg.ief.rotation_format}, bf16): "
+        f"bucket graphs {PRESET_BUCKETS} captured in {warm_s:.2f} s; requests of 1, 3 and 32 bitwise the "
+        f"eager Predictor's, launches {launches}; padded rows {pad_err:.3e} from the images alone in "
+        f"their bucket; bucket 32 against bucket 1: {f32_gap:.3e} with a float32 encoder, {bf16_gap:.3e} in "
+        f"bf16 (the convolutions' rounding); forward median "
+        + ", ".join(f"{ms[n]:.3f} ms at {n}" for n in PRESET_BUCKETS) + f" [{smi}]"
+    )
+    return {"launches": launches, "ms": ms}
+
+
+def presets_phase(asset, smi) -> dict:
+    """Each preset of PRESET_RUNS at its full width and batch: `train.fit`
+    for PRESET_STEPS steps on its graph route (the route line checked, the
+    state bitwise the eager run's), `compile_fused_step` against eager
+    `fused_step`s bitwise with the launches of each replay, the graphed
+    step's host wall, device time, capture and pool, and fit's peak memory
+    above what earlier phases hold;
+    the raster kernels on the step's inputs for PRESET_KERNELS; then the
+    PRESET_SERVE model's serving graphs. Each preset's graphs are freed
+    before the next."""
+    t0 = time.perf_counter()
+    per_replay, rasters = {}, {}
+    for name in PRESET_RUNS:
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(configs.PRESETS[name], num_steps=PRESET_STEPS)
+        B = cfg.batch_size
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()  # by earlier phases
+        with scaled_init():
+            fitted, terms = routed(lambda: train.fit(cfg, asset=asset), "graph: compile_fused_step")
+        peak = torch.cuda.max_memory_allocated() - held[0], torch.cuda.max_memory_reserved() - held[1]
+        check(all(np.isfinite(v) for v in terms.values()), f"{name}: fit's terms {terms}")
+        run = graphed_steps(name, cfg, asset, PRESET_STEPS, smi, keep=True)
+        same_state(run_state(run["ts_e"]), run_state(fitted), True, name, "fit's graph-route state")
+        del fitted
+        fn, ts_g = run["fn"], run["ts_g"]
+        walls = []
+        for _ in range(PRESET_TIMED):
+            t2 = time.perf_counter()
+            fn(ts_g)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t2) * 1e3)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(PRESET_TIMED):
+            fn(ts_g)
+        e1.record()
+        e1.synchronize()
+        dev_ms = e0.elapsed_time(e1) / PRESET_TIMED
+        med = statistics.median(walls)
+        per_replay[name] = run["per_replay"]
+        m = cfg.model
+        print(
+            f"[presets] {name} (ResNet-{m.encoder.depth}, {m.ief.rotation_format}, {m.raster.num_parts} parts, "
+            f"B={B}, {m.image_size}^2, losses {'+'.join(k for k, w in cfg.loss_weights if w)}): fit on "
+            f"'graph: compile_fused_step' for {PRESET_STEPS} steps, state bitwise the eager run's, total "
+            f"{terms['total']:.6f}; graphed step {wall_stats(walls)} host wall ({B / med * 1e3:.1f} img/s), "
+            f"{dev_ms:.3f} ms device (CUDA events over {PRESET_TIMED} back-to-back replays); capture "
+            f"{run['capture_s']:.3f} s, pool {run['pool_bytes'] / 2**20:.1f} MiB; fit's peak allocated "
+            f"{peak[0] / 2**30:.2f} GiB, reserved {peak[1] / 2**30:.2f} GiB (above what earlier phases "
+            f"hold); launches per replay "
+            f"{run['per_replay']} [{smi}]"
+        )
+        if name in PRESET_KERNELS:
+            rasters[name] = preset_raster(name, cfg, run["ts_e"], run["consts"], smi)
+        del run, fn, ts_g
+        torch.cuda.empty_cache()
+        print(f"[presets] {name} in {time.perf_counter() - t1:.1f} s")
+    serving = preset_serving(asset, smi)
+    torch.cuda.empty_cache()
+    print(f"[presets] phase in {time.perf_counter() - t0:.1f} s")
+    return {"per_replay": per_replay, "raster": rasters, "serve_launches": serving["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3193,6 +3426,7 @@ def main() -> int:
     serve_launches = serving_phase(cfg, model, consts, rng, smi)
     tr = training_phase(asset, smi)
     graphed = graphs_phase(cfg, model, consts, asset, rng, smi)
+    presets = presets_phase(asset, smi)
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
     disk = disk_phase(asset, smi)
@@ -3208,6 +3442,8 @@ def main() -> int:
             launches_graph_replay=graphed["per_replay"].get(name, 0),
             launches_disk_graph_replay=graphed["disk_per_replay"].get(name, 0),
             launches_eval_graph_replay=graphed["eval_per_replay"].get(name, 0),
+            launches_presets={p: d.get(name, 0) for p, d in presets["per_replay"].items()},
+            launches_presets_serve=presets["serve_launches"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),
@@ -3227,6 +3463,10 @@ def main() -> int:
     fwd, bwd = tr["raster_fwd"], tr["raster_bwd"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], ras4["max_abs_err"])
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd4["max_abs_err"])
+    for rec, key in ((fwd, "fwd"), (bwd, "bwd")):  # at the presets' shapes: C=31, B=128, config3's cotangent
+        rec["ms_presets"] = {n: r[f"{key}_ms"] for n, r in presets["raster"].items()}
+        rec["bound_ms_presets"] = {n: r[f"{key}_bound_ms"] for n, r in presets["raster"].items()}
+        rec["norm_err_presets"] = {n: r[f"{key}_err"] for n, r in presets["raster"].items()}
     kernels = [
         entry(lbs_cuda.KERNEL, "lbs.cu", "lbs_pallas.py:37", **lbs),
         entry(raster_cuda.KERNEL, "raster_fwd.cu", "raster_pallas.py:73", **fwd),

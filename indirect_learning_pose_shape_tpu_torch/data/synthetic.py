@@ -72,45 +72,35 @@ class SyntheticConfig:
             raise ValueError(f"bg_mode must be one of {BG_MODES}, got {self.bg_mode!r}")
 
 
-# The reference's fixed part palette, `jax.random.uniform(PRNGKey(1234),
+# The reference's fixed part palette is `jax.random.uniform(PRNGKey(1234),
 # (n, 3), 0.15, 1.0)` with row 0 (background) set to (0.05, 0.05, 0.08).
-# torch cannot reproduce jax.random, so the values are carried here; the
-# 25-channel palette is the first 25 rows of the 32-channel one. A test pins
-# both against the reference's `_part_palette`.
-_PALETTE = np.array([
-    (0.05, 0.05, 0.08),
-    (0.8706705, 0.27027956, 0.6847037),
-    (0.80946153, 0.47458872, 0.45208645),
-    (0.7629649, 0.8398832, 0.23471469),
-    (0.66578376, 0.96760327, 0.24213381),
-    (0.17620583, 0.53669816, 0.61664516),
-    (0.62234396, 0.80251664, 0.9806103),
-    (0.58564687, 0.7142346, 0.7309466),
-    (0.5888941, 0.24834198, 0.81569767),
-    (0.92855597, 0.50464773, 0.6604995),
-    (0.76905066, 0.9492862, 0.7323749),
-    (0.8908315, 0.8770128, 0.5615391),
-    (0.954786, 0.23374063, 0.98235154),
-    (0.69552743, 0.6489928, 0.21419467),
-    (0.3899466, 0.36157438, 0.48162353),
-    (0.3679618, 0.6354374, 0.20773888),
-    (0.90771496, 0.26552254, 0.16909525),
-    (0.25754437, 0.9613707, 0.8328175),
-    (0.71648467, 0.6438088, 0.7096087),
-    (0.9493826, 0.15854377, 0.8158623),
-    (0.22391182, 0.30179012, 0.61070025),
-    (0.15346056, 0.8709317, 0.7677104),
-    (0.92138034, 0.20894599, 0.16798307),
-    (0.48216787, 0.80304325, 0.28650764),
-    (0.63331574, 0.9865529, 0.23860893),
-    (0.5550759, 0.57196575, 0.31721193),
-    (0.2783551, 0.17181611, 0.23456614),
-    (0.16237305, 0.34044984, 0.86889994),
-    (0.80661875, 0.54635525, 0.74307936),
-    (0.7807056, 0.48250175, 0.96225315),
-    (0.46108657, 0.21494703, 0.8738845),
-    (0.53518724, 0.37184802, 0.5377223),
-], dtype=np.float32)
+# torch cannot reproduce jax.random, so `part_palette` computes the same
+# numbers in numpy: JAX's partitionable threefry2x32 (element i of the draw
+# is threefry2x32(key, (0, i)), its two words xor-ed), the top 23 bits made
+# a float in [1, 2) less 1, then f · 0.85 + 0.15 rounded once, as XLA's fused
+# multiply-add on the CPU rounds it. Every row is thus a prefix of one
+# sequence, for any channel count. A test pins it to the reference's
+# `_part_palette`.
+_PALETTE_KEY = (0, 1234)  # PRNGKey(1234): (seed >> 32, seed & 0xFFFFFFFF)
+_PALETTE_RANGE = (0.15, 1.0)
+_PALETTE_BACKGROUND = (0.05, 0.05, 0.08)
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key: tuple, x0: np.ndarray, x1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as `jax.random`
+    computes it, on uint32 arrays."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0, x1 = x0 + ks[0], x1 + ks[1]
+        for i in range(5):
+            for r in _THREEFRY_ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
 
 
 # Named eval distributions (the reference's `EVAL_SUITES`): 'plain' is the
@@ -162,12 +152,22 @@ def apply_overrides(cfg: SyntheticConfig, specs) -> SyntheticConfig:
 
 
 def part_palette(num_channels: int) -> np.ndarray:
-    """[num_channels, 3] float32 RGB per channel (0 = background, dark)."""
-    if num_channels not in (25, 32):
+    """[num_channels, 3] float32 RGB per channel (0 = background, dark): the
+    reference's `_part_palette(num_channels)`, bitwise."""
+    if num_channels < 2:
         raise ValueError(
-            f"the part palette is carried for 25 and 32 channels, not {num_channels}"
+            f"a part palette has the background and at least one part, not {num_channels} channels"
         )
-    return _PALETTE[:num_channels].copy()
+    i = np.arange(num_channels * 3, dtype=np.uint32)
+    hi, lo = _threefry2x32(_PALETTE_KEY, np.zeros_like(i), i)
+    unit = (((hi ^ lo) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    a, b = (np.float32(v) for v in _PALETTE_RANGE)
+    # f · (b - a) + a is exact in float64 (at most 47 significant bits), so
+    # one rounding to float32 is the fused multiply-add's.
+    colors = (unit.astype(np.float64) * np.float64(b - a) + np.float64(a)).astype(np.float32)
+    colors = np.maximum(a, colors).reshape(num_channels, 3)
+    colors[0] = _PALETTE_BACKGROUND
+    return colors
 
 
 # The stream's constants on a device, made once per device and never
