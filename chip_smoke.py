@@ -107,6 +107,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    config4_large's model served through a `Predictor` at buckets 1 and 32:
    shapes, graphed against eager bitwise, padding, the float32 encoder
    across buckets. Each preset's graphs are freed before the next.
+   Then the recorded recipes (`recipes_phase`): `tools/recipe_parity.py`'s
+   r34_indirect_5k (config4_r34, cosine 3e-4, clip 1.0, shape_reg 3e-3;
+   from the tool's own seed-0 init) cut to RECIPE_STEPS steps on the kernel
+   route, saved, loaded back and scored on one seed x RECIPE_EVAL_BATCHES
+   plain batches: the route line naming `fit`'s graph, the launches of the
+   run exactly RECIPE_STEPS eager steps' (2 LBS, 2 raster forward, 1 raster
+   backward) plus the evaluation's (3 LBS, 2 raster forward a batch), every
+   metric finite, the logged total at the last step below step 0's; the
+   tool's JSON line printed on a line of its own. No quality claim at this
+   horizon: the 5000-step runs are the tool's.
 8. Separable raster (the reference's default route) on the training
    phase's slots and cotangent: 'highest' against the exact twin, 'high', 'default'
    and the bf16 training scores against 'highest'; the bf16 forward and
@@ -206,7 +216,8 @@ training main path, per replay of the graphed config4_full step
 (`launches_disk_graph_replay`) and of a graphed plain-suite evaluation
 batch (`launches_eval_graph_replay`), per replay of each preset's graphed
 step in the presets phase (`launches_presets`) and in config4_large's
-served requests there (`launches_presets_serve`), on the config4_mixed steps and in its evaluation, on
+served requests there (`launches_presets_serve`), in the recipes phase's
+run and its evaluation (`launches_recipes`), on the config4_mixed steps and in its evaluation, on
 the config4_robust steps (`launches_robust`), on the disk steps
 (`launches_disk`), in the dataset writer (`launches_dataset`), on the int8
 requests and their evaluation (`launches_int8`), in the example
@@ -251,7 +262,7 @@ from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_ha
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
 from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
-from indirect_learning_pose_shape_tpu_torch.tools import quality_eval
+from indirect_learning_pose_shape_tpu_torch.tools import quality_eval, recipe_parity
 from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import device_summary, smi_line
 from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms, events_ms
 from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics, oracle
@@ -3388,6 +3399,48 @@ def presets_phase(asset, smi) -> dict:
     return {"per_replay": per_replay, "raster": rasters, "serve_launches": serving["launches"]}
 
 
+RECIPE = "r34_indirect_5k"
+RECIPE_STEPS = 200
+RECIPE_EVAL_BATCHES = 2
+
+
+def recipes_phase(asset, smi) -> dict:
+    """`recipe_parity.run` of RECIPE cut to RECIPE_STEPS steps on the kernel
+    route, scored on one protocol seed x RECIPE_EVAL_BATCHES plain batches:
+    the graph route (the tool raises on another), the run's launches
+    exactly its eager steps' and its evaluation batches', finite metrics,
+    the logged total falling. Makes no quality claim."""
+    t0 = time.perf_counter()
+    _build.reset_counts()
+    line = recipe_parity.run(
+        recipe_parity.RECIPES[RECIPE], 0, "auto", RECIPE_STEPS, "cuda", asset=asset,
+        eval_seeds=QUALITY_SEEDS[:1], batches=RECIPE_EVAL_BATCHES,
+    )
+    torch.cuda.synchronize()
+    launches = _build.counts()
+    want = {k: RECIPE_STEPS * PER_STEP.get(k, 0) + RECIPE_EVAL_BATCHES * PER_EVAL_BATCH.get(k, 0)
+            for k in PER_STEP}
+    check(line["route"].startswith("fit: graph: compile_fused_step"), f"recipe route {line['route']!r}")
+    check(launches == want, f"recipe run launched {launches}, not {RECIPE_STEPS} steps at {PER_STEP} "
+          f"and {RECIPE_EVAL_BATCHES} eval batches at {PER_EVAL_BATCH}: {want}")
+    metrics_ = line["suites"]["plain"]["metrics"]
+    check(all(np.isfinite(m["mean"]) for m in metrics_.values()), f"recipe metrics {metrics_}")
+    check(line["last_step"] == RECIPE_STEPS - 1 and line["last_total"] < line["first_total"],
+          f"recipe total {line['first_total']} at step 0, {line['last_total']} at step {line['last_step']}")
+    print(
+        f"[recipes] {RECIPE} for {RECIPE_STEPS} steps on {line['route']!r}: total "
+        f"{line['first_total']:.6f} at step 0 -> {line['last_total']:.6f} at step {line['last_step']}; "
+        f"graphed step {line['step_ms']:.3f} ms host wall; train {line['train_s']:.1f} s, run "
+        f"{line['run_s']:.1f} s; launches {launches} ({RECIPE_STEPS} x {PER_STEP} + "
+        f"{RECIPE_EVAL_BATCHES} x {PER_EVAL_BATCH}); plain PVE {metrics_['pve']['mean']:.5f}, sil IoU "
+        f"{metrics_['sil_iou']['mean']:.5f} on seed {QUALITY_SEEDS[0]} x {RECIPE_EVAL_BATCHES} batches "
+        f"(no quality claim at this horizon) [{smi}]"
+    )
+    print(json.dumps(line))
+    print(f"[recipes] phase in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3427,6 +3480,7 @@ def main() -> int:
     tr = training_phase(asset, smi)
     graphed = graphs_phase(cfg, model, consts, asset, rng, smi)
     presets = presets_phase(asset, smi)
+    recipes = recipes_phase(asset, smi)
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
     disk = disk_phase(asset, smi)
@@ -3444,6 +3498,7 @@ def main() -> int:
             launches_eval_graph_replay=graphed["eval_per_replay"].get(name, 0),
             launches_presets={p: d.get(name, 0) for p, d in presets["per_replay"].items()},
             launches_presets_serve=presets["serve_launches"].get(name, 0),
+            launches_recipes=recipes["launches"].get(name, 0),
             launches_serve=serve_launches.get(name, 0),
             launches_mixed=mixed["launches"].get(name, 0),
             launches_eval=mixed["eval_launches"].get(name, 0),

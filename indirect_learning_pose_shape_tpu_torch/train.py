@@ -1052,7 +1052,11 @@ def _weights(spec_list, base: tuple, error) -> tuple:
     return tuple(weights.items())
 
 
-def main(argv=None) -> int:
+def parse_config(argv=None) -> tuple[argparse.Namespace, configs.TrainConfig]:
+    """The command line's arguments and the `TrainConfig` that `main` trains
+    with: the preset with each given flag applied. A bad flag exits through
+    argparse, as `main` does. `--steps` stays an argument (`fit` folds it
+    into the schedule's horizon)."""
     ap = argparse.ArgumentParser(description="Train on the synthetic stream, a disk dataset or an image directory.")
     ap.add_argument("--preset", default="config4_full", choices=sorted(configs.PRESETS))
     ap.add_argument("--steps", type=int, default=None)
@@ -1153,7 +1157,11 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, **updates)
     except ValueError as e:
         ap.error(str(e))
+    return args, cfg
 
+
+def main(argv=None) -> int:
+    args, cfg = parse_config(argv)
     if args.debug_nans:
         debug.enable_nan_checks()
     # Under torchrun: join the launched group (NCCL on the card, gloo for
