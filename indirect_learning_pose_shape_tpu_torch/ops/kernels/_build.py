@@ -26,6 +26,10 @@ through (``reset_counts`` / ``counts``). Under a CUDA graph the card runs a
 kernel on every replay and the wrapper runs once, at capture:
 ``utils/graphs.py`` takes the capture's counts back (``set_counts``) and
 adds them on each replay, so the counts stay the launches the card ran.
+The counts live in the port's one counter registry, ``utils/tracing.py``,
+as its ``launch.`` counters: ``counts`` gives them under bare kernel names,
+``set_counts`` replaces only them, and ``reset_counts`` clears the whole
+registry.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from indirect_learning_pose_shape_tpu_torch.utils import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ilps_torch_kernels"
@@ -50,27 +56,28 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _entries: dict[str, ctypes._CFuncPtr] = {}
-_counts: dict[str, int] = {}
+_LAUNCH = "launch."
 
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` launches of kernel `name` (the wrappers add one where they
     launch; a graph's replay adds what its capture recorded)."""
-    _counts[name] = _counts.get(name, 0) + n
+    tracing.count(_LAUNCH + name, n)
 
 
 def counts() -> dict[str, int]:
-    return dict(_counts)
+    """The launch counts, by kernel name."""
+    return tracing.counters(_LAUNCH)
 
 
 def reset_counts() -> None:
-    _counts.clear()
+    """Clear every counter of the registry, launches and the others."""
+    tracing.reset_counts()
 
 
 def set_counts(saved: dict[str, int]) -> None:
-    """Put the counts back to `saved` (a `counts()` taken earlier)."""
-    _counts.clear()
-    _counts.update(saved)
+    """Put the launch counts back to `saved` (a `counts()` taken earlier)."""
+    tracing.set_counters(_LAUNCH, saved)
 
 
 def _nvcc() -> str:

@@ -36,7 +36,7 @@ import torch
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
-from indirect_learning_pose_shape_tpu_torch.utils import convert
+from indirect_learning_pose_shape_tpu_torch.utils import convert, tracing
 from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 
 
@@ -105,12 +105,16 @@ def predict(
 
 
 def render_silhouette(outputs: dict, consts, cfg: net.ModelConfig) -> dict:
-    """Soft part probabilities and silhouette from predicted verts + camera."""
-    verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
-    with torch.inference_mode():
-        return raster.soft_rasterize(
-            verts2d, consts.part_layout, cfg.raster, impl=cfg.raster_impl
-        )
+    """Soft part probabilities and silhouette from predicted verts + camera
+    (the span `serve.silhouette`, its parts `silhouette.project` and
+    `silhouette.raster`: `utils/tracing.py`)."""
+    with tracing.span("serve.silhouette", root=True):
+        with tracing.span("silhouette.project"):
+            verts2d = camera.project_pixel(outputs["verts"], outputs["cam"], cfg.image_size)
+        with tracing.span("silhouette.raster"), torch.inference_mode():
+            return raster.soft_rasterize(
+                verts2d, consts.part_layout, cfg.raster, impl=cfg.raster_impl
+            )
 
 
 def synthetic_images(

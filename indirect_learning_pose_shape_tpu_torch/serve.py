@@ -30,6 +30,12 @@ qparams are moved to the card once, when the Predictor is built.
 The forward runs under `torch.inference_mode()`. The Predictor turns TF32
 off process-wide (`utils.precision.disable_tf32`): float32 products on the
 card then match the reference's full-precision numbers.
+
+A request is the span `serve.request` (`utils/tracing.py`), its host work
+the child spans `serve.upload` (the images to the card), `serve.stage` (into
+the bucket's buffer, or padded on the eager route), `graph.replay`
+(`serve.forward` on the eager route) and `serve.clone`; it counts
+`serve.requests`, `serve.rows`, `serve.padded_rows` and `serve.bucket.<b>`.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import quantize as quant
 from indirect_learning_pose_shape_tpu_torch.utils import graphs as graphs_lib
+from indirect_learning_pose_shape_tpu_torch.utils import tracing
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -125,20 +132,31 @@ class Predictor:
 
     def __call__(self, images) -> dict:
         """images [N, S, S, 3] float32 in [-1, 1], any N within the buckets."""
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
-        images = images.to(self.device, torch.float32)
-        n = images.shape[0]
-        b = self.bucket_for(n)
-        if self.graphs:
-            static, graph = self._graph(b)
-            static[:n].copy_(images)
-            static[n:].zero_()
-            return {k: v[:n].clone() for k, v in graph.replay().items()}
-        if b != n:
-            pad = images.new_zeros((b - n,) + tuple(images.shape[1:]))
-            images = torch.cat([images, pad])
-        outputs = self._run(images.contiguous())
-        if b != n:
-            outputs = {k: v[:n] for k, v in outputs.items()}
-        return outputs
+        with tracing.span("serve.request", root=True):
+            with tracing.span("serve.upload"):
+                if isinstance(images, np.ndarray):
+                    images = torch.from_numpy(images)
+                images = images.to(self.device, torch.float32)
+            n = images.shape[0]
+            b = self.bucket_for(n)
+            tracing.count("serve.requests")
+            tracing.count("serve.rows", n)
+            tracing.count("serve.padded_rows", b - n)
+            tracing.count(f"serve.bucket.{b}")
+            if self.graphs:
+                static, graph = self._graph(b)
+                with tracing.span("serve.stage"):
+                    static[:n].copy_(images)
+                    static[n:].zero_()
+                outputs = graph.replay()
+                with tracing.span("serve.clone"):
+                    return {k: v[:n].clone() for k, v in outputs.items()}
+            if b != n:
+                with tracing.span("serve.stage"):
+                    pad = images.new_zeros((b - n,) + tuple(images.shape[1:]))
+                    images = torch.cat([images, pad])
+            with tracing.span("serve.forward"):
+                outputs = self._run(images.contiguous())
+            if b != n:
+                outputs = {k: v[:n] for k, v in outputs.items()}
+            return outputs

@@ -29,8 +29,10 @@ Per bucket it reports:
   `profiled_wall_ms` (host wall of the profiled requests; the profiler
   lengthens it), `device_busy_share` = device_ms / profiled_wall_ms (a lower
   bound of the busy share without the profiler), `kernels_per_request`
-  (device kernel and copy launches), `by_category_ms` (see `category`), and
-  the eight largest device items as [ms, name, launches].
+  (device kernel and copy launches), `by_category_ms` (see `category`),
+  the eight largest device items as [ms, name, launches], and
+  `idle_by_span`: the device's idle ms over the profiled requests by the
+  innermost of the port's spans over it (`utils/tracing.idle_by_span`).
 
 Needs one CUDA device; writes the JSON to `--out` and prints it.
 """
@@ -113,6 +115,8 @@ def device_summary(prof, per: int) -> dict:
 def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    from indirect_learning_pose_shape_tpu_torch.utils import tracing
+
     def req():
         return _request(p, cfg, consts, images)
 
@@ -139,6 +143,7 @@ def profile_bucket(p, cfg, consts, images, timed: int, profiled: int) -> dict:
         "by_category_ms": dev["by_category_ms"],
         "kernels_per_request": dev["kernels"],
         "top": dev["top"],
+        "idle_by_span": tracing.idle_by_span(prof),
     }
 
 

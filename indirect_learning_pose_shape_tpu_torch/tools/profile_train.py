@@ -28,8 +28,10 @@ step (`--eager`: the eager `train.fused_step`, for comparison), then:
   `device_busy_share` = device_ms / profiled_wall_ms (a lower bound of the
   busy share without the profiler), `kernels_per_step`, `by_category_ms`
   (`profile_serve.category`: the three kernels, "conv/gemm" for cuDNN
-  convolutions and cuBLAS GEMMs, "other" for the rest) and the eight
-  largest device items as [ms, name, launches];
+  convolutions and cuBLAS GEMMs, "other" for the rest), the eight
+  largest device items as [ms, name, launches], and `idle_by_span`: the
+  device's idle ms over the profiled steps by the innermost of the port's
+  spans over it (`utils/tracing.idle_by_span`);
 - `kernel_launches_per_step` from the port's launch counters, and
   `peak_memory_gb` (`torch.cuda.max_memory_allocated`);
 - with hard targets, `hard_raster_ms`: the device time of one call of the
@@ -117,6 +119,7 @@ def main(argv=None) -> int:
     from indirect_learning_pose_shape_tpu_torch import configs, train
     from indirect_learning_pose_shape_tpu_torch.data import dataset as dataset_lib
     from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build
+    from indirect_learning_pose_shape_tpu_torch.utils import tracing
 
     cfg = configs.PRESETS[args.preset]
     if args.batch_size:
@@ -181,6 +184,7 @@ def main(argv=None) -> int:
         "kernels_per_step": dev["kernels"],
         "by_category_ms": dev["by_category_ms"],
         "top": dev["top"],
+        "idle_by_span": tracing.idle_by_span(prof),
         "kernel_launches_per_step": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }

@@ -64,7 +64,11 @@ log line (stderr) names the route. The disk steps take the same routes
 on the card each prefetched batch is copied into the graph's static input
 buffers and one graph is replayed a step, its augmentation draws from a
 registered generator reseeded by (seed, step, 1), equal to the eager
-`data_train_step` (or `train_step`) bitwise.
+`data_train_step` (or `train_step`) bitwise. Each step of a compiled step,
+and of the eager `fused_step`, is the span `train.step` (`utils/tracing.py`),
+its host work the child spans `train.reseed`, `train.stale_check`,
+`train.capture`, `train.copy_in`, `graph.replay`, `train.advance` and
+`train.clone`.
 
 Several GPUs (`config5_data_parallel`; `num_devices`, `render_devices`):
 every rank runs this module on its rows of the global batch, over a mesh of
@@ -115,7 +119,7 @@ from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.utils import assets as assets_lib
 from indirect_learning_pose_shape_tpu_torch.utils import debug, metrics
 from indirect_learning_pose_shape_tpu_torch.utils import device as device_lib
-from indirect_learning_pose_shape_tpu_torch.utils import graphs
+from indirect_learning_pose_shape_tpu_torch.utils import graphs, tracing
 from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
@@ -435,8 +439,9 @@ def fused_step(
     The eager step, one host launch a kernel: `compile_fused_step` is the
     same step as a CUDA graph, and runs this on the CPU."""
     for _ in range(cfg.steps_per_call):
-        batch = make_batch(ts.seed, ts.step, cfg.batch_size, consts, cfg, mesh)
-        terms = train_step(ts, batch, consts, cfg, mesh)
+        with tracing.span("train.step", root=True):
+            batch = make_batch(ts.seed, ts.step, cfg.batch_size, consts, cfg, mesh)
+            terms = train_step(ts, batch, consts, cfg, mesh)
     return terms
 
 
@@ -498,10 +503,23 @@ class _GraphedStep:
     def _stale(self, ts: TrainState) -> bool:
         return self.graph is None or not graphs.same_tensors(self._bound, _graph_tensors(ts))
 
-    def _replay(self, ts: TrainState) -> dict:
+    def _step(self, ts: TrainState, step_fn: Callable[[], dict]) -> dict:
+        """One step: captured when the graph is stale, else replayed, then
+        the host's part (`_advance`)."""
+        with tracing.span("train.stale_check"):
+            stale = self._stale(ts)
+        if stale:
+            with tracing.span("train.capture"):
+                return self._capture(ts, step_fn)
         terms = self.graph.replay()
-        _advance(ts)
+        with tracing.span("train.advance"):
+            _advance(ts)
         return terms
+
+    @staticmethod
+    def _clone(terms: dict) -> dict[str, torch.Tensor]:
+        with tracing.span("train.clone"):
+            return {k: v.clone() for k, v in terms.items()}
 
 
 class FusedStepGraph(_GraphedStep):
@@ -519,10 +537,15 @@ class FusedStepGraph(_GraphedStep):
             batch = _draw_batch(self.gen, cfg.batch_size, consts, cfg, mesh)
             return _step_on_device(ts, batch, consts, cfg, mesh)
 
-        for _ in range(cfg.steps_per_call if num_steps is None else num_steps):
-            self.gen.manual_seed(step_seed(ts.seed, ts.step))
-            terms = self._capture(ts, step) if self._stale(ts) else self._replay(ts)
-        return {k: v.clone() for k, v in terms.items()}
+        n = cfg.steps_per_call if num_steps is None else num_steps
+        for i in range(n):
+            with tracing.span("train.step", root=True):
+                with tracing.span("train.reseed"):
+                    self.gen.manual_seed(step_seed(ts.seed, ts.step))
+                terms = self._step(ts, step)
+                if i == n - 1:  # the call's clones belong to its last step
+                    terms = self._clone(terms)
+        return terms
 
 
 def compile_fused_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
@@ -581,18 +604,20 @@ class TrainStepGraph(_GraphedStep):
     def _device_step(self, ts: TrainState, inputs: dict) -> dict:
         return _step_on_device(ts, inputs, self.consts, self.cfg, self.mesh)
 
+    def _reseed(self, ts: TrainState) -> None:
+        """Reseed the step's generator before the replay (none here)."""
+
     def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        layout = {k: (v.shape, v.dtype) for k, v in batch.items()}
-        if self.inputs is None or layout != {k: (v.shape, v.dtype) for k, v in self.inputs.items()}:
-            self.inputs, self.graph = {k: torch.empty_like(v, device=self.device) for k, v in batch.items()}, None
-        for k, v in batch.items():
-            self.inputs[k].copy_(v)
-        if self._stale(ts):
+        with tracing.span("train.step", root=True):
+            self._reseed(ts)
+            with tracing.span("train.copy_in"):
+                layout = {k: (v.shape, v.dtype) for k, v in batch.items()}
+                if self.inputs is None or layout != {k: (v.shape, v.dtype) for k, v in self.inputs.items()}:
+                    self.inputs, self.graph = {k: torch.empty_like(v, device=self.device) for k, v in batch.items()}, None
+                for k, v in batch.items():
+                    self.inputs[k].copy_(v)
             inputs = self.inputs
-            terms = self._capture(ts, lambda: self._device_step(ts, inputs))
-        else:
-            terms = self._replay(ts)
-        return {k: v.clone() for k, v in terms.items()}
+            return self._clone(self._step(ts, lambda: self._device_step(ts, inputs)))
 
 
 class DataStepGraph(TrainStepGraph):
@@ -614,9 +639,9 @@ class DataStepGraph(TrainStepGraph):
             batch = _disk_batch(inputs, self.cfg, self.mesh, lambda n: _draw_augment(self.gen, n, self.cfg))
         return _step_on_device(ts, _local_batch(batch, self.mesh), self.consts, self.cfg, self.mesh)
 
-    def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        self.gen.manual_seed(step_seed(ts.seed, ts.step, _AUGMENT_STREAM))
-        return super().__call__(ts, batch)
+    def _reseed(self, ts: TrainState) -> None:
+        with tracing.span("train.reseed"):
+            self.gen.manual_seed(step_seed(ts.seed, ts.step, _AUGMENT_STREAM))
 
 
 def compile_train_fns(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):

@@ -19,7 +19,10 @@ share:
 - `Graph.replay` launches the recorded call;
 - the kernel launch counters (`ops/kernels/_build.py`) stay the launches
   the card ran: a capture's own counts are taken back and each replay adds
-  them (`record_launches`, `Graph.replay`).
+  them (`record_launches`, `Graph.replay`);
+- a capture is the span `graph.capture` and counts `graph.captures`, a
+  replay the span `graph.replay` (the host's launch of the graph) and
+  counts `graph.replays` (`utils/tracing.py`).
 
 A capture records device work only: a call whose host code copies a host
 value to the card, reads a device value on the host or synchronises fails
@@ -39,6 +42,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build
+from indirect_learning_pose_shape_tpu_torch.utils import tracing
 
 # One side stream per device: warm-ups and captures run there, so the state
 # that CUDA libraries keep per stream is made once, by the warm-up.
@@ -98,7 +102,9 @@ class Graph:
     def replay(self):
         """Launch the recorded call; returns the static outputs (clone what
         must outlive the next replay)."""
-        self.graph.replay()
+        with tracing.span("graph.replay"):
+            self.graph.replay()
+        tracing.count("graph.replays")
         for name, n in self.launches.items():
             _build.count(name, n)
         return self.outputs
@@ -117,19 +123,21 @@ def capture(
     that reseeds it before a replay gets the draws of an eager call from
     that seed. The call's host code runs once, now; a failed capture
     raises."""
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(device)
-    t0 = time.perf_counter()
-    launches: dict = {}
-    with record_launches(launches):
-        with torch.cuda.graph(graph, pool=pool, stream=side_stream(device), capture_error_mode="thread_local"):
-            outputs = fn()
-    torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
+    with tracing.span("graph.capture"):
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        launches: dict = {}
+        with record_launches(launches):
+            with torch.cuda.graph(graph, pool=pool, stream=side_stream(device), capture_error_mode="thread_local"):
+                outputs = fn()
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    tracing.count("graph.captures")
     return Graph(graph, outputs, launches, seconds, torch.cuda.memory_reserved(device) - reserved)
 
 

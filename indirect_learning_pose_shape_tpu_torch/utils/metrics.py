@@ -3,8 +3,10 @@
 Per-step scalars go to a JSONL file (`{"step", "wall_dt", term: value,
 ...}`, one line a write) and, optionally, to TensorBoard event files
 written here without TensorBoard (a TFRecord stream of hand-encoded `Event`
-protos), with a console line every `print_every` steps. `profile_trace`
-captures a `torch.profiler` Chrome trace.
+protos), with a console line every `print_every` steps. A write is the
+span `train.log`, its host transfer `train.log.readback`
+(`utils/tracing.py`). `profile_trace` captures a `torch.profiler` Chrome
+trace and the spans of the profiled block.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import time
 from typing import IO, Optional
 
 import torch
+
+from indirect_learning_pose_shape_tpu_torch.utils import tracing
 
 # --- TensorBoard event-file encoding ----------------------------------------
 # A TB scalar log is a TFRecord stream of serialized `Event` protos:
@@ -138,10 +142,15 @@ class MetricsWriter:
         """Record `scalars` (0-dim tensors on one device, or numbers) at
         `step`; returns them as floats. All values reach the host in one
         transfer (one `stack(...).tolist()`), not one synchronisation a key."""
+        with tracing.span("train.log", root=True):
+            return self._write(step, scalars)
+
+    def _write(self, step: int, scalars: dict) -> dict[str, float]:
         names = list(scalars)
-        values = torch.stack(
-            [torch.as_tensor(scalars[k], dtype=torch.float32).reshape(()) for k in names]
-        ).tolist() if names else []
+        with tracing.span("train.log.readback"):
+            values = torch.stack(
+                [torch.as_tensor(scalars[k], dtype=torch.float32).reshape(()) for k in names]
+            ).tolist() if names else []
         floats = dict(zip(names, values))
         now = time.perf_counter()
         record = {"step": step, "wall_dt": now - self._last_time, **floats}
@@ -165,15 +174,22 @@ class MetricsWriter:
 
 @contextlib.contextmanager
 def profile_trace(path: str):
-    """Capture a `torch.profiler` trace of the block (host ops, and the
-    card's kernels when there is one) into `path`/trace.json, a Chrome trace
-    (chrome://tracing, Perfetto)."""
+    """Capture a `torch.profiler` trace of the block (host ops, the port's
+    spans, and the card's kernels when there is one) into `path`/trace.json,
+    a Chrome trace (chrome://tracing, Perfetto), and the block's spans into
+    `path`/spans.json: `summary` (`tracing.summary` of the spans the block
+    recorded, and the counters) and `idle_by_span` (the device's idle time
+    by the innermost span over it)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    begin = time.perf_counter_ns() / 1e6
     with profile(activities=activities) as prof:
         yield prof
     os.makedirs(path, exist_ok=True)
     prof.export_chrome_trace(os.path.join(path, "trace.json"))
+    recorded = [s for s in tracing.spans() if s["start"] >= begin]
+    with open(os.path.join(path, "spans.json"), "w") as f:
+        json.dump({"summary": tracing.summary(recorded), "idle_by_span": tracing.idle_by_span(prof)}, f, indent=1)

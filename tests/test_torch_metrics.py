@@ -95,7 +95,8 @@ def test_metrics_writer_tees_jsonl_and_tensorboard(tmp_path, capsys, monkeypatch
 
 def test_train_cli_writes_metrics_trace_and_checks_nans(tmp_path, capsys):
     """--metrics and --tensorboard get one record per logged step, --profile
-    a Chrome trace, and --debug-nans turns on anomaly mode for the run."""
+    a Chrome trace with the port's spans in it and their summary beside it,
+    and --debug-nans turns on anomaly mode for the run."""
     argv = ["--preset", "config4_full", "--steps", "2", "--batch-size", "1", "--image-size", "32",
             "--log-every", "1", "--device", "cpu", "--metrics", str(tmp_path / "m.jsonl"),
             "--tensorboard", str(tmp_path / "tb"), "--profile", str(tmp_path / "trace"), "--debug-nans"]
@@ -110,6 +111,14 @@ def test_train_cli_writes_metrics_trace_and_checks_nans(tmp_path, capsys):
     assert len(_records(tmp_path / "tb" / event_file)) == 3
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    assert {"train.step", "train.log"} <= {e.get("name") for e in trace["traceEvents"]}
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    named = spans["summary"]["spans"]
+    assert named["train.step"]["count"] == 2 and named["train.log"]["count"] == 2
+    assert named["train.log.readback"]["count"] == 2
+    assert named["train.step"]["self_ms"] <= named["train.step"]["total_ms"]
+    idle = spans["idle_by_span"]
+    assert set(idle) == {"window_ms", "idle_ms", "by_span_ms", "no_span_ms"} and idle["window_ms"] > 0
     printed = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     assert [{k: v for k, v in r.items() if k != "wall_dt"} for r in lines] == printed
 
