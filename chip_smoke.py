@@ -131,9 +131,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    which must agree with the kernels' metrics.
 10. The config4_robust recipe at full width (config4_mixed's, on hard
    z-buffered targets with textured backgrounds, palette jitter, shading
-   and occluders; EMA 0.999): the hard raster on the step's bodies against
-   the CPU run of the same function and the float64 oracle, timed dense and
-   culled; counted fused steps (2 LBS, 1 raster forward, 1 raster backward
+   and occluders; EMA 0.999): the hard raster on the step's bodies, its
+   kernel (`csrc/raster_hard.cu`) bitwise against the eager dense path,
+   and against the CPU run of the same function and the float64 oracle,
+   timed (the kernel alone and the whole call, at B=32 and 128, beside the
+   eager dense path and the kernel's byte bound) and culled; counted fused
+   steps (2 LBS, 1 raster forward, 1 raster backward, 1 hard raster
    launches each; the hard raster replaces the target render) with one
    step's device time; a checkpoint saved, restored bitwise and timed;
    `train.fit` to step 2 with checkpoints, then resumed to 4 (the restored
@@ -259,7 +262,7 @@ from indirect_learning_pose_shape_tpu_torch.models import encoder as encoder_lib
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
-from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda
+from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda, raster_hard_cuda
 from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.tools import quality_eval, recipe_parity
@@ -324,15 +327,17 @@ EVAL_REL_TOL = 1e-3
 ROBUST_WARMUP = 3
 ROBUST_STEPS = 3
 RESUME_K = 2
-PER_STEP_ROBUST = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1}
+# Hard targets: the hard raster's kernel renders them, no soft target render.
+PER_STEP_ROBUST = {lbs_cuda.KERNEL: 2, raster_cuda.KERNEL: 1, raster_cuda.KERNEL_BWD: 1, raster_hard_cuda.KERNEL: 1}
 PER_EVAL_BATCH = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 2}  # batch, forward, ground truth SMPL
-PER_EVAL_BATCH_HARD = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 1}  # hard targets: no target render
+PER_EVAL_BATCH_HARD = {lbs_cuda.KERNEL: 3, raster_cuda.KERNEL: 1, raster_hard_cuda.KERNEL: 1}
 # The resumed run's loss terms at step 2k against the straight run's,
 # relative: cuDNN's backward is not bitwise repeatable, so two runs of the
 # same steps differ by its rounding (not bitwise as on the CPU).
 RESUME_TOL = 1e-3
 # The hard raster on the card against the CPU run of the same function, and
-# against the float64 oracle (tests/test_raster_hard.py's limit).
+# against the float64 oracle (tests/test_raster_hard.py's limit). Its kernel
+# is held to the eager dense path on the card bitwise.
 HARD_AGREE = 0.999
 ORACLE_AGREE = 0.995
 HARD_K_FACES = 512  # the culled mode timed beside the dense one
@@ -340,6 +345,7 @@ HARD_K_FACES = 512  # the culled mode timed beside the dense one
 # HARD_CPU_CHUNK, which keep its temporaries in the CPU's caches.
 HARD_CPU_IMAGES = 2
 HARD_CPU_CHUNK = 8
+HARD_BATCHES = (32, 128)  # the kernel's timed batches
 QUALITY_SEEDS = (123, 231, 312)
 QUALITY_SUITES = ("plain", "hard", "hardapp")
 # The disk phase: a dataset of DISK_EXAMPLES at DISK_SOURCE² written by the
@@ -1369,17 +1375,41 @@ def tb_records(path: str) -> int:
     return n
 
 
-def hard_raster_phase(cfg, consts, smi) -> dict:
-    """The hard raster at the robust step's batch, on its own bodies (batch 0
-    of the stream): against the CPU run of the same function and, on one
-    image, the float64 oracle; timed dense (as the step runs it) and with
-    HARD_K_FACES slots a tile, whose overflow is printed."""
-    B, S, scfg = cfg.batch_size, cfg.model.image_size, cfg.synthetic
+def hard_bodies(cfg, consts, B: int):
+    """Batch 0 of the stream's bodies at batch B: (verts2d, z, lights)."""
+    S, scfg = cfg.model.image_size, cfg.synthetic
     gen = torch.Generator(device="cuda").manual_seed(train.step_seed(cfg.seed, 0))
     draws = synthetic.sample_draws(gen, B, consts, scfg, S)
     verts = smpl.smpl_forward(consts.smpl, draws["pose"], draws["betas"], impl=cfg.model.smpl_impl)["verts"]
-    v2, vz, light = camera.project_pixel(verts, draws["cam"], S), verts[..., 2], draws["light"]
+    return camera.project_pixel(verts, draws["cam"], S), verts[..., 2], draws["light"]
+
+
+def hard_kernel_bytes(B: int, F: int, S: int) -> int:
+    """The kernel's least traffic: its four [B, S, S] outputs written, the
+    coefficients [B, F, 13], `ok` [B, F] and the classes [F] read once."""
+    return B * S * S * 16 + B * F * (13 * 4 + 1) + F * 4
+
+
+def hard_raster_phase(cfg, consts, smi) -> dict:
+    """The hard raster at the robust step's batch, on its own bodies (batch 0
+    of the stream): the kernel route bitwise against the eager dense path
+    (`impl='torch'`); against the CPU run of the same function and, on one
+    image, the float64 oracle; the kernel alone and the whole call (the
+    torch prologue, `_face_coeffs`, and the kernel) timed in a CUDA graph
+    at each of HARD_BATCHES beside the eager dense path and the kernel's
+    byte bound; the culled mode with HARD_K_FACES slots a tile timed, its
+    overflow printed."""
+    B, S = cfg.batch_size, cfg.model.image_size
+    F = consts.hard.faces.shape[0]
+    v2, vz, light = hard_bodies(cfg, consts, B)
+    _build.reset_counts()
     card = raster_hard.hard_raster(v2, vz, consts.hard, S, with_shade=True, light=light)
+    check(_build.counts() == {raster_hard_cuda.KERNEL: 1}, f"hard raster on the card launched {_build.counts()}")
+    eager = raster_hard.hard_raster(v2, vz, consts.hard, S, with_shade=True, light=light, impl="torch")
+    for k in ("part_labels", "silhouette", "zbuf", "shade", "overflow"):
+        check(torch.equal(card[k], eager[k]),
+              f"hard raster kernel vs the eager dense path at B={B}: {k} differs in "
+              f"{int((card[k] != eager[k]).sum())} elements")
     torch.cuda.synchronize()
     hc_cpu = raster_hard.HardConsts(consts.hard.faces.cpu(), consts.hard.face_class.cpu())
     t0 = time.perf_counter()
@@ -1403,24 +1433,44 @@ def hard_raster_phase(cfg, consts, smi) -> dict:
     o_agree = float((lab == labels[0].numpy()).mean())
     check(o_agree >= ORACLE_AGREE, f"hard raster vs the float64 oracle: labels agree on {o_agree} < {ORACLE_AGREE}")
     print(
-        f"[robust] hard raster B={B} {S}^2, {consts.hard.faces.shape[0]} faces, silhouette {fg:.4f} of the "
-        f"pixels: card vs CPU labels agree on {agree:.6f}, silhouettes equal, shade max abs err "
-        f"{shade_err:.3e} (CPU run {cpu_s:.1f} s); image 0 vs the float64 oracle {o_agree:.6f}"
+        f"[robust] hard raster B={B} {S}^2, {F} faces, silhouette {fg:.4f} of the pixels: kernel vs the eager "
+        f"dense path bitwise (labels, silhouette, zbuf, shade, overflow); card vs CPU labels agree on "
+        f"{agree:.6f}, silhouettes equal, shade max abs err {shade_err:.3e} (CPU run {cpu_s:.1f} s); image 0 "
+        f"vs the float64 oracle {o_agree:.6f}"
     )
 
-    def run(k=None):
-        return raster_hard.hard_raster(v2, vz, consts.hard, S, k_faces=k, with_shade=True, light=light)
+    def run(k=None, impl="auto"):
+        return raster_hard.hard_raster(v2, vz, consts.hard, S, k_faces=k, with_shade=True, light=light, impl=impl)
 
     culled = run(HARD_K_FACES)
     overflow = int(culled["overflow"])
     c_agree = float((culled["part_labels"] == card["part_labels"]).double().mean())
-    dense_ms, culled_ms = events_ms(run, 3), events_ms(lambda: run(HARD_K_FACES), 3)
+    culled_ms = events_ms(lambda: run(HARD_K_FACES), 3)
     print(
-        f"[robust] hard raster B={B} {S}^2 with shade: dense {dense_ms:.3f} ms; k_faces={HARD_K_FACES} "
-        f"{culled_ms:.3f} ms, overflow {overflow} faces, labels as dense on {c_agree:.6f} [{smi}]"
+        f"[robust] hard raster B={B} {S}^2 with shade: k_faces={HARD_K_FACES} {culled_ms:.3f} ms, overflow "
+        f"{overflow} faces, labels as dense on {c_agree:.6f} [{smi}]"
     )
-    return {"dense_ms": dense_ms, "k_faces_ms": culled_ms, "k_faces_overflow": overflow,
-            "card_vs_cpu": agree, "oracle": o_agree}
+    by_batch = {}
+    for nb in HARD_BATCHES:
+        if nb != B:
+            v2, vz, light = hard_bodies(cfg, consts, nb)
+        coeffs, _, ok = raster_hard._face_coeffs(v2, vz, consts.hard, True, light)
+        kernel_ms = device_ms(lambda: raster_hard_cuda.raster_hard_cuda(
+            coeffs, ok, consts.hard.face_class, S, S, 0, True), 20)
+        call_ms = device_ms(run, 20)
+        eager_ms = events_ms(lambda: run(impl="torch"), 1 if nb > B else 3)
+        bound_ms = hard_kernel_bytes(nb, F, S) / HBM_BYTES_PER_S * 1e3
+        by_batch[nb] = {"ms": kernel_ms, "call_ms": call_ms, "eager_ms": eager_ms, "bound_ms": bound_ms}
+        print(
+            f"[robust] hard raster B={nb} {S}^2 dense with shade: kernel {kernel_ms:.4f} ms (bound {bound_ms:.4f} "
+            f"ms, bytes at 3.35 TB/s: {bound_ms / kernel_ms:.1%}), whole call in a graph (prologue + kernel) "
+            f"{call_ms:.4f} ms, eager dense path {eager_ms:.3f} ms ({eager_ms / call_ms:.0f}x) [{smi}]"
+        )
+    del coeffs, ok
+    ms = by_batch[B]
+    return {"ms": ms["ms"], "call_ms": ms["call_ms"], "eager_ms": ms["eager_ms"], "bound_ms": ms["bound_ms"],
+            "bound_by": "bytes", "by_batch": by_batch, "max_abs_err": 0.0, "k_faces_ms": culled_ms,
+            "k_faces_overflow": overflow, "card_vs_cpu": agree, "oracle": o_agree}
 
 
 def robust_phase(asset, smi) -> dict:
@@ -3526,6 +3576,9 @@ def main() -> int:
         entry(lbs_cuda.KERNEL, "lbs.cu", "lbs_pallas.py:37", **lbs),
         entry(raster_cuda.KERNEL, "raster_fwd.cu", "raster_pallas.py:73", **fwd),
         entry(raster_cuda.KERNEL_BWD, "raster_bwd.cu", "raster_pallas.py:103", **bwd),
+        # No Pallas kernel: the reference's dense hard raster is a lax.scan.
+        dict(entry(raster_hard_cuda.KERNEL, "raster_hard.cu", "", **robust["hard"]),
+             replaces="indirect_learning_pose_shape_tpu/ops/raster_hard.py hard_raster (lax.scan, no Pallas)"),
     ]
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,15 @@ its band of tile rows: the tiles are numbered row-major, so a block of tile
 rows is a band of image rows, and the band's outputs are the same rows of
 the whole render. The number of tile rows must divide over the render axis.
 
+On the card the dense mode is one hand-written kernel
+(`ops/kernels/raster_hard_cuda.py`, `csrc/raster_hard.cu`) that consumes the
+same prologue (`_face_coeffs`) and returns the eager dense outputs bitwise.
+The route is chosen from the input: `impl='auto'` launches the kernel for a
+CUDA tensor with `k_faces=None` and runs the eager code otherwise (CPU
+tensors; `k_faces` set, whose face-order budget is the reference's
+approximation); `impl='torch'` always runs the eager code, `impl='kernel'`
+always the kernel (it raises for a CPU tensor or with `k_faces`).
+
 `hard_raster_oracle` is a numpy copy of the reference's per-triangle loop,
 for the tests.
 """
@@ -34,6 +43,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from indirect_learning_pose_shape_tpu_torch.ops.kernels import raster_hard_cuda
 
 _NEG = -3.0e38  # empty-pixel depth, below any real depth, float32-safe
 
@@ -68,31 +79,37 @@ def _face_coeffs(verts2d, verts_z, hc: HardConsts, with_shade: bool, light):
     az,bz,cz, shade), with edge functions w_i(x, y) = a_i x + b_i y + c_i
     signed so that inside means every w_i >= 0, and depth z(x, y) = az x +
     bz y + cz. A degenerate face gets c_i = -1 (never inside). Also the
-    faces' boxes (xmin, xmax, ymin, ymax) and `ok` (not degenerate)."""
+    faces' boxes (xmin, xmax, ymin, ymax) and `ok` (not degenerate).
+
+    The three edges go through each operation together (the corners rolled
+    into place): about half the launches of an edge at a time, and every
+    element sees the same float32 operations in the same order, so the
+    result is bitwise that form's (`portbench/reference/hard.py` keeps it)."""
     tri = verts2d[:, hc.faces]  # [B, F, 3, 2]
     tz = verts_z[:, hc.faces]  # [B, F, 3]
     x, y = tri[..., 0], tri[..., 1]
 
-    def edge(i, j):
-        # w(p) = (xj - xi)(py - yi) - (yj - yi)(px - xi)
-        a = -(y[..., j] - y[..., i])
-        b = x[..., j] - x[..., i]
-        c = (y[..., j] - y[..., i]) * x[..., i] - (x[..., j] - x[..., i]) * y[..., i]
-        return a, b, c
-
-    # Edge i is opposite vertex i; w_i / area is the barycentric λ_i.
-    e0, e1, e2 = edge(1, 2), edge(2, 0), edge(0, 1)
-    area = e0[0] * x[..., 0] + e0[1] * y[..., 0] + e0[2]  # twice the signed area
+    # Edge k runs from corner k+1 to corner k+2 (it is opposite corner k):
+    # w(p) = (xj - xi)(py - yi) - (yj - yi)(px - xi), so a = -(yj - yi),
+    # b = xj - xi, c = (yj - yi)·xi - (xj - xi)·yi. w_k / area is the
+    # barycentric λ_k. torch.roll, not an index list: nothing is copied from
+    # the host, so the prologue captures in a CUDA graph.
+    start = torch.roll(tri, -1, dims=2)  # corners 1, 2, 0
+    d = torch.roll(tri, -2, dims=2) - start  # corners 2, 0, 1 less those
+    dx, dy = d[..., 0], d[..., 1]
+    a, b = -dy, dx  # [B, F, 3 edges]
+    c = dy * start[..., 0] - dx * start[..., 1]
+    area = a[..., 0] * x[..., 0] + b[..., 0] * y[..., 0] + c[..., 0]  # twice the signed area
     s = torch.sign(area)
-    ok = torch.abs(area) > 1e-9
-    inv = torch.where(ok, s / torch.clamp(torch.abs(area), min=1e-9), 0.0)
+    mag = torch.abs(area)
+    ok = mag > 1e-9
+    inv = torch.where(ok, s / torch.clamp(mag, min=1e-9), 0.0)
 
-    coeffs = []
-    for a, b, c in (e0, e1, e2):
-        coeffs += [a * s, b * s, torch.where(ok, c * s, -1.0)]
-    # z(p) = Σ λ_i z_i = (Σ w_i z_i) / area.
-    for k in range(3):
-        coeffs.append((e0[k] * tz[..., 0] + e1[k] * tz[..., 1] + e2[k] * tz[..., 2]) * inv)
+    s3 = s[..., None]
+    edges = torch.stack([a * s3, b * s3, torch.where(ok[..., None], c * s3, -1.0)], dim=-1)  # [B, F, 3, 3]
+    # z(p) = Σ λ_i z_i = (Σ w_i z_i) / area, for (az, bz, cz) at once.
+    wz = torch.stack([a, b, c], dim=-2) * tz[..., None, :]  # [B, F, coefficient, edge]
+    depth = ((wz[..., 0] + wz[..., 1]) + wz[..., 2]) * inv[..., None]
 
     if with_shade:
         # Flat Lambertian shade from the screen-space normal (pixels, pixels,
@@ -106,9 +123,18 @@ def _face_coeffs(verts2d, verts_z, hc: HardConsts, with_shade: bool, light):
         shade = 0.25 + 0.75 * torch.clamp(torch.sum(n * l, dim=-1), 0.0, 1.0)
     else:
         shade = torch.zeros_like(x[..., 0])
-    coeffs.append(shade)
-    bbox = (x.amin(-1), x.amax(-1), y.amin(-1), y.amax(-1))
-    return torch.stack(coeffs, dim=-1), bbox, ok
+    lo, hi = tri.amin(dim=2), tri.amax(dim=2)  # [B, F, 2]
+    bbox = (lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1])
+    return torch.cat([edges.flatten(-2), depth, shade[..., None]], dim=-1), bbox, ok
+
+
+def _use_kernel(impl: str, device: torch.device, k_faces: int | None) -> bool:
+    """Whether `hard_raster` launches the kernel (module docstring)."""
+    if impl not in ("auto", "kernel", "torch"):
+        raise ValueError(f"hard raster impl must be 'auto' | 'kernel' | 'torch', got {impl!r}")
+    if impl == "kernel" and k_faces is not None:
+        raise ValueError("the hard raster kernel renders the dense mode only: k_faces must be None")
+    return impl == "kernel" or (impl == "auto" and device.type == "cuda" and k_faces is None)
 
 
 @torch.no_grad()
@@ -124,6 +150,7 @@ def hard_raster(
     with_shade: bool = False,
     light=(0.35, -0.5, 0.79),
     rows=None,
+    impl: str = "auto",
 ) -> dict[str, torch.Tensor]:
     """Z-buffered part-label render of verts2d [B, V, 2] (pixels) at depth
     verts_z [B, V] (larger is nearer), on verts2d's device.
@@ -132,7 +159,8 @@ def hard_raster(
     exact). A tile that overlaps more faces than that drops the excess and
     counts it in `overflow`; a caller that sets k_faces checks overflow is 0.
     `light` is one direction [3] or one per image [B, 3], read only with
-    `with_shade`.
+    `with_shade`. `impl` picks the route ('auto', 'kernel' or 'torch', module
+    docstring); every route returns the same outputs.
 
     Returns part_labels [B, S, S] int32 (0 background, class c → c + 1),
     silhouette [B, S, S] float32 {0, 1}, zbuf [B, S, S] float32 (-3e38 where
@@ -142,6 +170,7 @@ def hard_raster(
     """
     if size % tile:
         raise ValueError(f"size {size} must be a multiple of tile {tile}")
+    use_kernel = _use_kernel(impl, verts2d.device, k_faces)
     T = size // tile
     ty0, tb = 0, T  # the first tile row rendered here, and how many
     if rows is not None:
@@ -160,6 +189,10 @@ def hard_raster(
     nt = tb * T
 
     coeffs, (xmin, xmax, ymin, ymax), ok = _face_coeffs(verts2d, verts_z, hc, with_shade, light)
+    if use_kernel:
+        out = raster_hard_cuda.raster_hard_cuda(coeffs, ok, hc.face_class, tb * tile, size, ty0 * tile, with_shade)
+        out["overflow"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return out
     fclass = hc.face_class.expand(B, F)
 
     if k_faces is not None and k_faces < F:
