@@ -18,11 +18,11 @@ running statistics, Adam's moments) and one more step is run: a replay of
 the window's graph, whose terms, BatchNorm batch statistics, gradient (from
 Adam's first moment before and after it) and parameters after it are the
 check's replay numbers. With `--trace 1`, then: `trace_steps` more steps
-under `torch.profiler`, the raster kernels' work on those steps' bodies,
-and, with hard targets, one hard-raster call timed between CUDA events.
-Then the state is freed; the reference trains the first `check_steps`
-steps from the same weights, and the replayed step from the copied state,
-on the batch of the step the benchmark counted it as.
+under `torch.profiler`, and the raster kernels' work on those steps' bodies
+(with hard targets, the hard raster's on each step's batch). Then the
+state is freed; the reference trains the first `check_steps` steps from
+the same weights, and the replayed step from the copied state, on the
+batch of the step the benchmark counted it as.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from portbench.reference import model as ref_model
 from portbench.reference import stream as ref_stream
 from portbench.reference import train as ref_train
 from portbench.reference.precision import Precision, full_float32
+from portbench.work import hard as hard_work
 from portbench.work import raster as raster_work
 
 
@@ -125,7 +126,6 @@ def _batch_stats(after: dict, before: dict, momentum: float) -> dict:
 
 def run(ctx) -> dict:
     from indirect_learning_pose_shape_tpu_torch import train
-    from indirect_learning_pose_shape_tpu_torch.ops import raster_hard
     from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build
     from indirect_learning_pose_shape_tpu_torch.utils import metrics as metrics_lib
 
@@ -224,7 +224,7 @@ def run(ctx) -> dict:
     rcfg = reference_config(config, traffic)
     inp = ref_train.Inputs(asset, rcfg["num_parts"], dev)
     if ctx.trace:
-        result["trace"] = _trace(ctx, step, ts, inp, rcfg, consts, raster_hard)
+        result["trace"] = _trace(ctx, step, ts, inp, rcfg)
 
     del step_fn, ts, consts, names
     gc.collect()
@@ -255,7 +255,7 @@ def replay_reference(state: dict, inp, rcfg: dict, seed: int, k: int, prec: Prec
             "bn1": {n: tuple(v.cpu() for v in mv) for n, mv in r["bn1"].items()}, "params": _host(r["params"])}
 
 
-def _trace(ctx, step, ts, inp, rcfg, consts, raster_hard) -> dict:
+def _trace(ctx, step, ts, inp, rcfg) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = ctx.device.type == "cuda"
@@ -273,14 +273,16 @@ def _trace(ctx, step, ts, inp, rcfg, consts, raster_hard) -> dict:
     summary = trace.summarize(prof, k)
 
     # The raster kernels' work on the stretch's bodies: the targets' from the
-    # stream, the prediction's from the state's weights after the stretch.
+    # stream, the prediction's from the state's weights after the stretch;
+    # with hard targets, the hard raster's on each step's batch.
     weights = {n: t.detach() for n, t in {**dict(ts.model.named_parameters()),
                                            **dict(ts.model.named_buffers())}.items()}
     labels = torch.as_tensor(inp.body.labels, device=ctx.device)
     size, C, sigma = rcfg["image_size"], rcfg["num_parts"], rcfg["sigma"]
     bound = {"raster_fwd_kernel": 0.0, "raster_bwd_kernel": 0.0}
+    if rcfg["stream"].targets == "hard":
+        bound["raster_hard_kernel"] = k * hard_work.bound_ms(rcfg["batch_size"], inp.body.faces.shape[0], size)
     fmas = 0.0
-    hard_ms = None
     prec = Precision()
     for s in range(first, first + k):
         batch = ref_train.make_batch(inp, rcfg, ctx.seed, s, prec)
@@ -294,39 +296,5 @@ def _trace(ctx, step, ts, inp, rcfg, consts, raster_hard) -> dict:
         bound["raster_fwd_kernel"] += raster_work.bound_ms(w, False)
         bound["raster_bwd_kernel"] += raster_work.bound_ms(w, True)
         fmas += 3 * w["pairs"]
-        if s == first and rcfg["stream"].targets == "hard" and cuda:
-            hard_ms = _hard_raster_ms(inp, rcfg, ctx.seed, s, consts, raster_hard)
-    extras = {"bound_ms": bound, "raster_fmas_per_image": fmas / (k * rcfg["batch_size"]),
-              "hard_raster_ms": hard_ms}
+    extras = {"bound_ms": bound, "raster_fmas_per_image": fmas / (k * rcfg["batch_size"])}
     return {"summary": summary, "extras": extras}
-
-
-def _hard_raster_ms(inp, rcfg, seed, step, consts, raster_hard, iters: int = 3) -> float:
-    """Device ms of one call of the port's hard raster as the stream makes
-    it (dense, shaded, the batch's lights) on step `step`'s bodies, between
-    CUDA events (a frozen copy of `tools/profile_train.hard_raster_ms`)."""
-    from portbench.reference import body as body_lib
-
-    b = inp.body
-    gen = torch.Generator(device=b.v_template.device).manual_seed(ref_stream.step_seed(seed, step))
-    d = ref_stream.draws(gen, rcfg["batch_size"], b.num_joints, b.shapedirs.shape[1],
-                         b.coco_regressor.shape[0], rcfg["num_parts"], rcfg["stream"], rcfg["image_size"])
-    B = d["pose"].shape[0]
-    with full_float32():
-        out = body_lib.smpl(b, body_lib.rodrigues(d["pose"].reshape(B, -1, 3)), d["betas"], Precision())
-    verts2d = body_lib.project_pixel(out["verts"], d["cam"], rcfg["image_size"])
-    s = rcfg["stream"]
-
-    def call():
-        raster_hard.hard_raster(verts2d, out["verts"][..., 2], consts.hard, rcfg["image_size"],
-                                k_faces=s.hard_k_faces or None, with_shade=s.shading > 0,
-                                light=d.get("light") if s.shading else (0.35, -0.5, 0.79))
-
-    call()
-    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    begin.record()
-    for _ in range(iters):
-        call()
-    end.record()
-    torch.cuda.synchronize()
-    return begin.elapsed_time(end) / iters

@@ -120,3 +120,14 @@ def test_a_cell_of_new_files_loads_without_edits(tmp_path):
     assert list(traced)[-2:] == ["checks", "_info"]
     with pytest.raises(KeyError):
         Spec("no.such.cell", root)
+
+
+def test_robust_bound_is_the_one_perf_md_gives():
+    """`train_img_per_s.robust`'s bound lies inside the contract's range and
+    is the value of its row in PERF.md's table of end-to-end metrics."""
+    bound = {m["name"]: m["bound"] for m in _bench()["end_to_end"]}["train_img_per_s.robust"]
+    rows = [r for r in (ROOT / "PERF.md").read_text().splitlines()
+            if r.startswith("| `train_img_per_s.robust` | images/s |")]
+    assert len(rows) == 1
+    assert 0.01 <= bound <= 0.25
+    assert float(rows[0].strip("| ").split("|")[-1]) == bound

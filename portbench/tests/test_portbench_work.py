@@ -1,10 +1,11 @@
 """The FLOP and byte counters against hand counts."""
 
 import numpy as np
+import pytest
 import torch
 
 from portbench import trace
-from portbench.work import flops, raster
+from portbench.work import flops, hard, raster
 
 
 def test_resnet18_macs_by_hand():
@@ -59,3 +60,11 @@ def test_union_counts_overlap_once():
     assert trace.category("Memcpy HtoD (Pageable -> Device)") == "H2D copy"
     assert trace.category("sm90_xmma_gemm_bf16") == "conv/gemm"
     assert trace.category("vectorized_elementwise_kernel") == "other"
+
+
+@pytest.mark.parametrize("B, nbytes, ms", [(32, 36_682_432, 0.01095), (128, 146_707_648, 0.04379)])
+def test_hard_raster_bytes_at_the_stand_ins_faces(B, nbytes, ms):
+    # The kernel table's bound (PERF.md §6 row 4) at 256² and the stand-in's
+    # 1,840 faces: four 4-byte outputs a pixel, 53 bytes a face a row, 4 a class.
+    assert hard.hard_bytes(B, 1840, 256) == nbytes
+    assert hard.bound_ms(B, 1840, 256) == pytest.approx(ms, abs=5e-6)
