@@ -17,7 +17,8 @@ data/augment.py), `pretrained` (a backbone npz of
 the mesh is then num_devices / render_devices by render_devices);
 train.py says how each acts.
 
-Every preset of the reference is here.
+Every preset of the reference is here, and one the reference lacks:
+`hmr2_vith`, HMR 2.0's ViT-H/16 and transformer head (`HMR2_VITH`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from indirect_learning_pose_shape_tpu_torch.data.synthetic import SyntheticConfi
 from indirect_learning_pose_shape_tpu_torch.models.encoder import EncoderConfig
 from indirect_learning_pose_shape_tpu_torch.models.ief import IEFConfig
 from indirect_learning_pose_shape_tpu_torch.models.network import ModelConfig
+from indirect_learning_pose_shape_tpu_torch.models.transformer_head import TransformerHeadConfig
+from indirect_learning_pose_shape_tpu_torch.models.vit import ViTConfig
 from indirect_learning_pose_shape_tpu_torch.ops.raster import RasterConfig
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +188,37 @@ CONFIG4_ROBUST = dataclasses.replace(
     ),
 )
 
+# HMR 2.0 (Goel et al., "Humans in 4D", ICCV 2023, arXiv 2305.20091) at its
+# published widths: ViTPose's ViT-H/16 on columns 32:224 of the 256² crop
+# (192 tokens; 32 blocks, 1280 wide, 16 heads, MLP 5120, drop path 0.55)
+# and the 6-layer cross-attention decoder head (1024 wide, 8 heads of 64,
+# context 1280), Θ in 6D rotations, AdamW at 1e-5 with weight decay 1e-4,
+# batch 48. Departures from HMR 2.0, on this system's terms:
+# - config4_mixed's indirect loss set (silhouette, parts, keypoints, direct
+#   3D) replaces HMR 2.0's keypoint losses and its adversarial pose prior;
+# - the weak-perspective projection replaces its focal-5000 perspective
+#   camera;
+# - seeded weights replace ViTPose's pretrained backbone;
+# - the SMPL stand-in and its Θ₀ (`smpl.mean_params`) replace
+#   `smpl_mean_params.npz`;
+# - config4_mixed's global-norm clip at 1.0, its 20000-step budget and its
+#   24-part σ=2 raster.
+HMR2_VITH = TrainConfig(
+    model=ModelConfig(
+        image_size=256,
+        encoder=ViTConfig(),
+        ief=IEFConfig(rotation_format="rot6d", num_iterations=1),
+        head=TransformerHeadConfig(),
+        raster=_model(256).raster,
+    ),
+    batch_size=48,
+    learning_rate=1e-5,
+    weight_decay=1e-4,
+    grad_clip_norm=1.0,
+    num_steps=20000,
+    loss_weights=CONFIG4_MIXED.loss_weights,
+)
+
 PRESETS = {
     "config1_single": CONFIG1_SINGLE,
     "config2_smpl_batch": CONFIG2_SMPL_BATCH,
@@ -197,4 +231,5 @@ PRESETS = {
     "config4_robust": CONFIG4_ROBUST,
     "config4_parts31": CONFIG4_PARTS31,
     "config5_data_parallel": CONFIG5_DATA_PARALLEL,
+    "hmr2_vith": HMR2_VITH,
 }

@@ -56,7 +56,8 @@ after a real first step that serves as its warm-up and replayed once a step
 (`utils/graphs.py`), equal to the eager `fused_step` bitwise. The optimizer
 is capturable there and reads its rate from a tensor on the card that the
 schedule fills between replays; the batch's draws come from one generator
-registered with the graph and reseeded by (seed, step) before each replay.
+registered with the graph and reseeded by (seed, step) before each replay,
+the ViT's drop-path draws (`hmr2_vith`) after the batch's.
 `fit` runs the graph on the card, alone or on an NCCL mesh, and the eager
 `fused_step` on the CPU, on gloo meshes and under `--debug-nans`; its first
 log line (stderr) names the route. The disk steps take the same routes
@@ -211,7 +212,7 @@ def init_state(
     model, consts = net.init(asset, cfg.model, seed=cfg.seed, device=device)
     with torch.no_grad():
         if cfg.mean_params:
-            model.ief.mean_theta.copy_(ief_mod.load_mean_theta(cfg.mean_params, cfg.model.ief))
+            model.regressor.mean_theta.copy_(ief_mod.load_mean_theta(cfg.mean_params, cfg.model.ief))
         if cfg.pretrained:
             pretrained.load_encoder(model.encoder, cfg.pretrained)
     return new_state(model, cfg, cfg.seed), consts
@@ -295,8 +296,10 @@ def loss_and_metrics(
     and `beta_err` (mean absolute error against the batch's ground truth).
     Updates the BN running statistics in place. Under `mesh`, `batch` is
     this rank's rows (its targets this rank's band of image rows under a
-    render axis) and every value is the global batch's."""
-    outputs = net.forward_train(model, consts, batch["image"], cfg.model, probs=False, mesh=mesh)
+    render axis) and every value is the global batch's. The ViT's drop
+    path takes the batch's `drop_path_u`."""
+    outputs = net.forward_train(model, consts, batch["image"], cfg.model, probs=False, mesh=mesh,
+                                drop_path_u=batch.get("drop_path_u"))
     targets = {k: batch[k] for k in ("silhouette", "part_labels", "kp2d", "kp_vis")}
     # The direct-supervision targets: the synthetic stream names them gt_*,
     # disk datasets carry the bare names.
@@ -418,17 +421,25 @@ def _draw_batch(
 ) -> dict[str, torch.Tensor]:
     """`make_batch` from `gen`, seeded by the caller: a CUDA graph records
     the draws of a generator registered with it, and the caller reseeds it
-    before each replay."""
+    before each replay. A ViT with drop path takes its uniform draws
+    `drop_path_u` [B, 2·depth] from `gen` after the batch's."""
     draws = synthetic.sample_draws(
         gen, batch_size, consts, cfg.synthetic, cfg.model.image_size
     )
+    m, drop = cfg.model, None
+    if m.head is not None and m.encoder.drop_path > 0:
+        drop = torch.rand((batch_size, 2 * m.encoder.depth), generator=gen, device=gen.device)
+    rows = slice(None) if mesh is None else mesh.batch_rows(batch_size)
     if mesh is not None:
-        draws = synthetic.shard_draws(draws, mesh.batch_rows(batch_size))
+        draws = synthetic.shard_draws(draws, rows)
     w = cfg.loss_weight_dict
     include_3d = any(w.get(k, 0.0) for k in ("j3d", "v3d", "rotmat"))
-    return synthetic.render_batch(
+    batch = synthetic.render_batch(
         draws, consts, cfg.model, cfg.synthetic, include_3d, rows=render_sp.constrainer(mesh)
     )
+    if drop is not None:
+        batch["drop_path_u"] = drop[rows]
+    return batch
 
 
 def fused_step(

@@ -2,7 +2,9 @@
 and of a served request goes, measured where the work happens.
 
 Spans. `span(name)` is a context manager placed on host code at a layer's
-boundary, around launches, never inside a function a CUDA graph captures.
+boundary, around launches. The model's own spans (`vit.*`, `head.decoder`)
+lie inside the step a CUDA graph captures: they record in an eager call and
+at the capture, never at a replay, which runs no host code.
 It records only while a `torch.profiler` session is active (one call,
 `torch._C._autograd._profiler_enabled()`); otherwise it returns the shared
 no-op `OFF` and records nothing. There is no other switch: a run is traced
@@ -37,11 +39,15 @@ Span names, by layer (`PERF.md` §3 says which metric reads each):
                     serve.clone
     serve.silhouette  silhouette.project silhouette.raster
     graph.capture
+    vit.embed vit.blocks head.decoder   (the HMR 2.0 model's forward)
 
 The roots, each opened with `root=True` where it is called: `train.step`,
 `train.log`, `serve.request`, `serve.silhouette`. Counters:
 `graph.captures`, `graph.replays`, `serve.requests`, `serve.rows`,
-`serve.padded_rows`, `serve.bucket.<b>`, `launch.<kernel>`.
+`serve.padded_rows`, `serve.bucket.<b>`, `launch.<kernel>`, and in the
+HMR 2.0 model's forward `attn.calls.<backend>` (a
+`scaled_dot_product_attention` call, by the backend it takes) and
+`vit.tokens` (the tokens the ViT encodes).
 """
 
 from __future__ import annotations

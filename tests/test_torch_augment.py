@@ -28,7 +28,7 @@ def test_tables_and_config_match_reference():
     assert dataclasses.asdict(aug.AugmentConfig()) == dataclasses.asdict(jaug.AugmentConfig())
 
 
-@pytest.mark.parametrize("name", sorted(configs.PRESETS))
+@pytest.mark.parametrize("name", sorted(set(configs.PRESETS) - {"hmr2_vith"}))  # hmr2_vith: the port's alone
 def test_presets_carry_the_reference_augment(name):
     got = dataclasses.asdict(configs.PRESETS[name].augment)
     assert got == dataclasses.asdict(jconfigs.PRESETS[name].augment)

@@ -216,17 +216,20 @@ def test_bad_optimizer_fields_are_refused(field, value):
 
 
 _UNPORTED_PRESETS = set()
+# Presets of the port alone: HMR 2.0's ViT and transformer head have no
+# reference preset (tests/test_torch_hmr2.py holds them to the plain one).
+_PORT_ONLY_PRESETS = {"hmr2_vith"}
 
 
 def _fields(obj, names):
     return {n: getattr(obj, n) for n in names}
 
 
-@pytest.mark.parametrize("name", sorted(configs.PRESETS))
+@pytest.mark.parametrize("name", sorted(set(configs.PRESETS) - _PORT_ONLY_PRESETS))
 def test_presets_are_train_configs(name):
     """Each port preset carries the reference preset's fields: the run's,
     the encoder's, IEF's, the raster's and the synthetic stream's."""
-    assert set(configs.PRESETS) == set(jconfigs.PRESETS) - _UNPORTED_PRESETS
+    assert set(configs.PRESETS) - _PORT_ONLY_PRESETS == set(jconfigs.PRESETS) - _UNPORTED_PRESETS
     cfg, ref = configs.PRESETS[name], jconfigs.PRESETS[name]
     assert isinstance(cfg, configs.TrainConfig) and isinstance(cfg.model, net.ModelConfig)
     run = ("batch_size", "learning_rate", "lr_schedule", "warmup_steps", "grad_clip_norm",
