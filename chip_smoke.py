@@ -146,7 +146,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the JSONL and TensorBoard files read back; `tools/quality_eval.py` on the
    checkpoint and its EMA on the plain, hard and hardapp suites (3 seeds x 1
    batch), and the kernels against the plain versions on hardapp.
-11. Disk data at full width (config4_full's model, b32, 256² crops from a
+11. The ViT blocks' add + LayerNorm kernels (`add_ln_phase`) at ViT-H's
+   [48·192, 1280] in three variants (a drop-path scale a sample, none, no
+   branch): the op through autograd on card tensors against its plain twin
+   (x' bitwise, h and dy within one bf16 ulp, dx within 1e-5, dγ and dβ
+   within 1e-4, a second backward bitwise, one launch of each kernel a
+   call); each kernel timed beside its byte bound and the eager chain it
+   replaced; one graphed `hmr2_vith` step at b48 launching 64 of each
+   kernel a replay, with no row on the twin.
+12. Disk data at full width (config4_full's model, b32, 256² crops from a
    dataset at 320²): the native host preprocessor built with g++ and
    loaded (`USE_NATIVE`), bitwise against its numpy versions on 32 ragged
    images; a 128-example dataset written by `make_synthetic_dataset` (its
@@ -165,7 +173,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    against the plain versions on its first batch; the image-directory path
    (`fit_preprocessed`, `evaluate_preprocessed`) where PIL imports, and a
    line saying which held.
-12. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
+13. int8 serving and tools, on step 4's serving model: `ptq_quantize` on
    16 synthetic images (seed 999), the qparams file read back bitwise, a
    `keep_sites=('stem',)` variant; a `Predictor(qparams)` per impl
    (int8, int8c, sim, simc) at batches 1, 8, 32, 128: each site's int8
@@ -184,7 +192,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    LBS, raster forward and raster backward launch a step; a profiled
    window); `train.init_state` from a pretrained npz and a mean-parameter
    file written in the phase.
-13. Multi-GPU training on the one card (`parallel_phase`, last):
+14. Multi-GPU training on the one card (`parallel_phase`, last):
    config5_data_parallel (ResNet-18, global batch 64, 256²). NCCL at world
    size 1 in this process: step 1 through the mesh against the no-mesh
    step (rtol 1e-6; it reads bitwise), 3 steps each way in turns (host
@@ -226,7 +234,10 @@ the config4_robust steps (`launches_robust`), on the disk steps
 requests and their evaluation (`launches_int8`), in the example
 (`launches_fit`) and on the parallel phase's counted steps per rank
 (`launches_parallel_nccl`, `_dp`, `_sp`), in rank 0's sharded int8 calls
-(`launches_parallel_int8`) and in the oracle checks (`launches_oracle`), its
+(`launches_parallel_int8`) and in the oracle checks (`launches_oracle`),
+and for the ViT's add + LayerNorm kernels per replay of the graphed
+hmr2_vith step (`launches_hmr2_graph_replay`, the backward's reduction
+`launches_hmr2_graph_replay_reduce`) and the eager chain's `eager_ms`; its
 time, its plain twin's and, for the raster kernels, the float32 separable
 yardstick's and the bf16 separable times at the training path's shapes,
 and its bound; the LBS entry adds `by_batch`, its warm and cold times,
@@ -261,14 +272,16 @@ from indirect_learning_pose_shape_tpu_torch.data import native_preprocess, synth
 from indirect_learning_pose_shape_tpu_torch.models import encoder as encoder_lib
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.models import smpl
+from indirect_learning_pose_shape_tpu_torch.models import vit as vit_mod
 from indirect_learning_pose_shape_tpu_torch.ops import camera, raster, raster_hard
 from indirect_learning_pose_shape_tpu_torch.ops.kernels import _build, lbs_cuda, raster_cuda, raster_hard_cuda
+from indirect_learning_pose_shape_tpu_torch.ops.kernels import vit_add_ln_cuda as add_ln
 from indirect_learning_pose_shape_tpu_torch.parallel import mesh as mesh_lib
 from indirect_learning_pose_shape_tpu_torch.parallel import render_sp
 from indirect_learning_pose_shape_tpu_torch.tools import quality_eval, recipe_parity
 from indirect_learning_pose_shape_tpu_torch.tools.profile_serve import device_summary, smi_line
 from indirect_learning_pose_shape_tpu_torch.tools.timing import ColdTimer, device_ms, events_ms
-from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics, oracle
+from indirect_learning_pose_shape_tpu_torch.utils import assets, metrics, oracle, tracing
 from indirect_learning_pose_shape_tpu_torch.utils.checkpoint import Checkpointer
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
@@ -346,6 +359,19 @@ HARD_K_FACES = 512  # the culled mode timed beside the dense one
 HARD_CPU_IMAGES = 2
 HARD_CPU_CHUNK = 8
 HARD_BATCHES = (32, 128)  # the kernel's timed batches
+# The ViT blocks' add + LayerNorm kernels (csrc/vit_add_ln.cu) at ViT-H's
+# residual stream at the hmr2_vith batch of 48 ([48·192, 1280]), in the
+# three variants of a step's 64 sites: a drop-path scale a sample (63 sites
+# in training), no scale, no branch (block 0's norm1). Held to the plain twin
+# at tests/test_torch_vit_add_ln.py's limits: x' bitwise, h and dy within one
+# bf16 ulp (of a magnitude of at least ADD_LN_ULP_FLOOR), dx within 1e-5 and
+# dγ, dβ within 1e-4 (relative norms).
+ADD_LN_SHAPE = (48, 192, 1280)
+ADD_LN_VARIANTS = ("drop_path", "no_drop_path", "no_y")
+ADD_LN_ULP_FLOOR = 2.0**-10
+ADD_LN_DX_TOL = 1e-5
+ADD_LN_DGAMMA_TOL = 1e-4
+ADD_LN_SITES = 64  # a ViT-H step's LayerNorm sites on the op: 2 a block, 32 blocks
 QUALITY_SEEDS = (123, 231, 312)
 QUALITY_SUITES = ("plain", "hard", "hardapp")
 # The disk phase: a dataset of DISK_EXAMPLES at DISK_SOURCE² written by the
@@ -1471,6 +1497,171 @@ def hard_raster_phase(cfg, consts, smi) -> dict:
     return {"ms": ms["ms"], "call_ms": ms["call_ms"], "eager_ms": ms["eager_ms"], "bound_ms": ms["bound_ms"],
             "bound_by": "bytes", "by_batch": by_batch, "max_abs_err": 0.0, "k_faces_ms": culled_ms,
             "k_faces_overflow": overflow, "card_vs_cpu": agree, "oracle": o_agree}
+
+
+def add_ln_bytes(R: int, D: int, branch: bool) -> tuple[int, int]:
+    """The add + LayerNorm kernels' least traffic over R rows of D, forward
+    and backward. Forward: x read (4 B an element), h written (2 B), and
+    with a branch y read (2 B) and x' written (4 B); the rows' mean and rstd
+    written, γ and β read. Backward: x' (4 B) and dh (2 B) read, dx (4 B)
+    written, and with a branch dres read (4 B) and dy written (2 B); the
+    rows' mean and rstd and γ read, dγ and dβ written. The γ/β partials'
+    scratch, which the design adds, is not counted."""
+    fwd = R * D * (12 if branch else 6) + R * 8 + D * 8
+    bwd = R * D * (16 if branch else 10) + R * 8 + D * 12
+    return fwd, bwd
+
+
+def bf16_ulp_ok(a: torch.Tensor, b: torch.Tensor, floor: float = ADD_LN_ULP_FLOOR) -> bool:
+    """Every element of the bf16 tensors a and b within one bf16 ulp of the
+    larger magnitude, taken as at least `floor`."""
+    a, b = a.float(), b.float()
+    m = torch.maximum(torch.maximum(a.abs(), b.abs()), torch.tensor(floor, device=a.device))
+    _, e = torch.frexp(m)
+    return bool(((a - b).abs() <= torch.ldexp(torch.ones_like(a), e - 8)).all())
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
+
+
+def add_ln_inputs(variant: str):
+    """x [48, 192, 1280] float32, the branch y (bf16; None for 'no_y'), the
+    scales s [B] (a strided column, as the model's; every third sample
+    dropped; None without drop path), a LayerNorm away from identity and the
+    cotangents dh (bf16) and dres (float32; None for 'no_y')."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    B, N, D = ADD_LN_SHAPE
+    x = torch.randn(ADD_LN_SHAPE, device="cuda", generator=gen)
+    y = None if variant == "no_y" else (torch.randn(ADD_LN_SHAPE, device="cuda", generator=gen) * 0.5).bfloat16()
+    s = None
+    if variant == "drop_path":
+        keep = (torch.arange(B, device="cuda") % 3 != 1).float()
+        s = torch.stack([keep / 0.6, keep / 0.7], dim=1)[:, 1]
+    norm = torch.nn.LayerNorm(D, eps=1e-6, device="cuda")
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(D, device="cuda", generator=gen))
+        norm.bias.copy_(0.1 * torch.randn(D, device="cuda", generator=gen))
+    dh = torch.randn(ADD_LN_SHAPE, device="cuda", generator=gen).bfloat16()
+    dres = None if y is None else torch.randn(ADD_LN_SHAPE, device="cuda", generator=gen)
+    return x, y, s, norm, dh, dres
+
+
+def add_ln_grads(fn, x, y, s, norm, dh, dres):
+    """x', h and the gradients (x, γ, β, and y with a branch) of
+    fn(x, y, s, norm, bf16) for the cotangents dh of h and dres of x'."""
+    x = x.detach().requires_grad_()
+    y = None if y is None else y.detach().requires_grad_()
+    xo, h = fn(x, y, s, norm, torch.bfloat16)
+    outs, cots = ([h], [dh]) if y is None else ([xo, h], [dres, dh])
+    g = torch.autograd.grad(outs, [x, norm.weight, norm.bias] + ([] if y is None else [y]), cots)
+    return xo.detach(), h.detach(), g
+
+
+def add_ln_eager(x, y, s, norm, dtype):
+    """The eager chain the op replaced at each site: the add, then
+    `layer_norm_to` (float32 LayerNorm, cast)."""
+    if y is not None:
+        y = y.float()
+        x = x + (y if s is None else y * s[:, None, None])
+    return x, vit_mod.layer_norm_to(x, norm, dtype)
+
+
+def add_ln_phase(asset, smi) -> dict:
+    """The ViT blocks' add + LayerNorm kernels at [48, 192, 1280] in each of
+    ADD_LN_VARIANTS: the op (`add_layer_norm`, forward and autograd's
+    backward) held to the plain twin on the same card tensors, its second
+    backward bitwise the first, one launch of each kernel a call; each
+    kernel timed alone (graph replays) beside its byte bound and the eager
+    chain it replaced (graph replays, forward and forward + backward). Then one
+    graphed hmr2_vith step at its b48: the launches of a replay
+    (ADD_LN_SITES of each kernel) and the rows the op normalised on the
+    kernels in the first call (none on the twin)."""
+    t_phase = time.perf_counter()
+    R, D = ADD_LN_SHAPE[0] * ADD_LN_SHAPE[1], ADD_LN_SHAPE[2]
+    twin = lambda x, y, s, n, dt: add_ln.add_ln_torch(x, y, s, n.weight, n.bias, n.eps, dt)[:2]  # noqa: E731
+    by_variant = {}
+    for variant in ADD_LN_VARIANTS:
+        x, y, s, norm, dh, dres = add_ln_inputs(variant)
+        _build.reset_counts()
+        kxo, kh, kg = add_ln_grads(add_ln.add_layer_norm, x, y, s, norm, dh, dres)
+        torch.cuda.synchronize()
+        launches = _build.counts()
+        rows = tracing.counters(add_ln.COUNTER)
+        want = {"vit_add_ln_fwd": 1, "vit_add_ln_bwd": 1, "vit_add_ln_bwd_reduce": 1}
+        check(launches == want, f"add+LN {variant}: one call launched {launches}, not {want}")
+        check(rows == {"kernel": R}, f"add+LN {variant}: rows counted {rows}, not {R} on the kernels")
+        again = add_ln_grads(add_ln.add_layer_norm, x, y, s, norm, dh, dres)[2]
+        check(all(torch.equal(a, b) for a, b in zip(kg, again)), f"add+LN {variant}: two backward calls differ")
+        txo, th, tg = add_ln_grads(twin, x, y, s, norm, dh, dres)
+        check(torch.equal(kxo, txo), f"add+LN {variant}: x' differs from the eager sum")
+        check(bf16_ulp_ok(kh, th), f"add+LN {variant}: h beyond one bf16 ulp of the twin's")
+        err = {"dx": rel_norm(kg[0], tg[0]), "dgamma": rel_norm(kg[1], tg[1]), "dbeta": rel_norm(kg[2], tg[2])}
+        check(err["dx"] <= ADD_LN_DX_TOL, f"add+LN {variant}: dx rel err {err['dx']} > {ADD_LN_DX_TOL}")
+        for k in ("dgamma", "dbeta"):
+            check(err[k] <= ADD_LN_DGAMMA_TOL, f"add+LN {variant}: {k} rel err {err[k]} > {ADD_LN_DGAMMA_TOL}")
+        if y is not None:
+            own = (kg[0] if s is None else kg[0] * s[:, None, None]).bfloat16()
+            check(torch.equal(kg[3], own), f"add+LN {variant}: dy is not the bf16 rounding of g·s")
+            check(bf16_ulp_ok(kg[3], tg[3]), f"add+LN {variant}: dy beyond one bf16 ulp of the twin's")
+        w, b = norm.weight.detach(), norm.bias.detach()
+        xo, _, mean, rstd = add_ln.add_ln_cuda(x, y, s, w, b, norm.eps, torch.bfloat16)
+        ydt = None if y is None else torch.bfloat16
+        fwd_ms = device_ms(lambda: add_ln.add_ln_cuda(x, y, s, w, b, norm.eps, torch.bfloat16), 20)
+        bwd_ms = device_ms(lambda: add_ln.add_ln_bwd_cuda(dh, dres, xo, mean, rstd, w, s, ydt), 20)
+        xr = x.detach().requires_grad_()
+        yr = None if y is None else y.detach().requires_grad_()
+        with torch.no_grad():
+            eager_fwd_ms = device_ms(lambda: add_ln_eager(x, y, s, norm, torch.bfloat16), 20)
+
+        def eager_step():
+            xo_e, h_e = add_ln_eager(xr, yr, s, norm, torch.bfloat16)
+            outs, cots = ([h_e], [dh]) if yr is None else ([xo_e, h_e], [dres, dh])
+            torch.autograd.grad(outs, [xr, norm.weight, norm.bias] + ([] if yr is None else [yr]), cots)
+
+        eager_ms = device_ms(eager_step, 20)  # autograd's backward captured with its forward
+        fb, bb = add_ln_bytes(R, D, y is not None)
+        by_variant[variant] = {
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bound_ms": fb / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": bb / HBM_BYTES_PER_S * 1e3, "eager_fwd_ms": eager_fwd_ms, "eager_ms": eager_ms,
+            **err,
+        }
+        v = by_variant[variant]
+        print(
+            f"[add_ln] {variant} [{R}, {D}]: x' bitwise, h and dy within one bf16 ulp of the twin, dx rel err "
+            f"{err['dx']:.2e}, dgamma {err['dgamma']:.2e}, dbeta {err['dbeta']:.2e}, backward repeats bitwise; "
+            f"forward {fwd_ms:.4f} ms (bound {v['fwd_bound_ms']:.4f} ms, {fb / 1e6:.1f} MB: "
+            f"{v['fwd_bound_ms'] / fwd_ms:.1%}), backward + reduction {bwd_ms:.4f} ms (bound "
+            f"{v['bwd_bound_ms']:.4f} ms, {bb / 1e6:.1f} MB: {v['bwd_bound_ms'] / bwd_ms:.1%}); the eager chain "
+            f"{eager_fwd_ms:.4f} ms forward, {eager_ms:.4f} ms forward + backward against the kernels' "
+            f"{fwd_ms + bwd_ms:.4f} [{smi}]"
+        )
+        del x, y, s, norm, dh, dres, kxo, kh, kg, again, txo, th, tg, xo, mean, rstd, xr, yr
+        torch.cuda.empty_cache()
+    # --- One graphed hmr2_vith step: the kernels' launches a replay. --------
+    cfg = configs.PRESETS["hmr2_vith"]
+    ts, consts = train.init_state(cfg, asset=asset, device="cuda")
+    fn = train.compile_fused_step(cfg, consts)
+    _build.reset_counts()
+    fn(ts)  # the eager warm-up step and the capture
+    torch.cuda.synchronize()
+    rows = tracing.counters(add_ln.COUNTER)
+    check(rows.get("kernel", 0) > 0 and rows.get("eager", 0) == 0,
+          f"hmr2_vith: the op's rows in the first call {rows}, none may run on the twin")
+    _build.reset_counts()
+    fn(ts)
+    torch.cuda.synchronize()
+    replay = {k: n for k, n in _build.counts().items() if k.startswith("vit_add_ln")}
+    want = {k: ADD_LN_SITES for k in ("vit_add_ln_fwd", "vit_add_ln_bwd", "vit_add_ln_bwd_reduce")}
+    check(fn.captures == 1 and replay == want, f"hmr2_vith: a replay launched {replay}, not {want}")
+    print(
+        f"[add_ln] hmr2_vith B={cfg.batch_size}: a graphed step's replay launched {replay}; the first call "
+        f"normalised {rows} rows [{smi}]"
+    )
+    del fn, ts, consts
+    torch.cuda.empty_cache()
+    print(f"[add_ln] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"by_variant": by_variant, "hmr2_replay": replay}
 
 
 def robust_phase(asset, smi) -> dict:
@@ -3533,6 +3724,7 @@ def main() -> int:
     recipes = recipes_phase(asset, smi)
     mixed = mixed_phase(asset, smi)
     robust = robust_phase(asset, smi)
+    addln = add_ln_phase(asset, smi)
     disk = disk_phase(asset, smi)
     int8 = int8_phase(cfg, model, consts, asset, smi)
     par = parallel_phase(asset, smi)
@@ -3580,6 +3772,20 @@ def main() -> int:
         dict(entry(raster_hard_cuda.KERNEL, "raster_hard.cu", "", **robust["hard"]),
              replaces="indirect_learning_pose_shape_tpu/ops/raster_hard.py hard_raster (lax.scan, no Pallas)"),
     ]
+    # No TPU kernel: the JAX package has no ViT. At the drop-path variant,
+    # the one of 63 of a training step's 64 sites; `by_variant` holds all three.
+    dp = addln["by_variant"]["drop_path"]
+    for name, key, eager in (("vit_add_ln_fwd", "fwd", dp["eager_fwd_ms"]),
+                             ("vit_add_ln_bwd", "bwd", dp["eager_ms"] - dp["eager_fwd_ms"])):
+        kernels.append(dict(
+            entry(name, "vit_add_ln.cu", "", ms=dp[f"{key}_ms"], bound_ms=dp[f"{key}_bound_ms"], bound_by="bytes",
+                  eager_ms=eager, by_variant={v: {k: r[k] for k in (f"{key}_ms", f"{key}_bound_ms")}
+                                              for v, r in addln["by_variant"].items()}),
+            replaces="none: the JAX package has no ViT (the eager chain of models/vit.py's LayerNorm sites)",
+            launches_hmr2_graph_replay=addln["hmr2_replay"].get(name, 0),
+            **({"launches_hmr2_graph_replay_reduce": addln["hmr2_replay"].get("vit_add_ln_bwd_reduce", 0)}
+               if key == "bwd" else {}),
+        ))
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

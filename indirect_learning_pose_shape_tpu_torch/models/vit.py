@@ -21,6 +21,17 @@ Precision, as `encoder.py`'s: the parameters are float32, and every product
 runs in `compute_dtype` (bf16) with the weights cast at the call; the
 LayerNorm statistics and the residual stream stay in float32.
 
+A branch joins the residual stream where the next LayerNorm reads it: each
+of a block's two LayerNorm sites is one `add_layer_norm` call
+(`ops/kernels/vit_add_ln_cuda.py`), x' = x + y.float()·s and its LayerNorm
+cast to `compute_dtype`, one hand-written CUDA kernel forward and one
+backward on the card (x' bitwise the eager sum), its plain twin on the CPU.
+The kernels take a bf16 `compute_dtype` and widths that are multiples of 8
+up to 1536; on the card any other configuration raises.
+Block 0's norm1 has no branch to add; the last block's MLP branch joins
+outside the op, before `last_norm`, which stays a module call. Counters
+`vit.tokens.add_ln.kernel` / `.eager`: the rows each route normalised.
+
 Attention goes through `scaled_dot_product_attention` (`attention`), which
 must pick a fused backend on the card (flash, memory-efficient or cuDNN):
 a choice of the math backend on a CUDA tensor raises. Each call counts
@@ -51,6 +62,7 @@ from torch import nn
 from torch.nn.attention import SDPBackend
 from torch.nn.utils import skip_init
 
+from indirect_learning_pose_shape_tpu_torch.ops.kernels.vit_add_ln_cuda import add_layer_norm
 from indirect_learning_pose_shape_tpu_torch.utils import tracing
 
 FUSED = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION)
@@ -179,19 +191,22 @@ def drop_path_scales(cfg: ViTConfig, u: torch.Tensor) -> torch.Tensor:
     return (u >= rates).float() / (1.0 - rates)
 
 
-def _block(blk: Block, x: torch.Tensor, cfg: ViTConfig, scales: Optional[torch.Tensor]) -> torch.Tensor:
-    """One block on the float32 residual stream x [B, N, D]; scales [B, 2] or
-    None (no drop path)."""
+def _block(blk: Block, x: torch.Tensor, y: Optional[torch.Tensor], s: Optional[torch.Tensor], cfg: ViTConfig,
+           scales: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block on the float32 residual stream x [B, N, D], which the
+    previous block's MLP branch y (bf16; None at the first block) with its
+    scale s [B] joins at norm1's site. scales [B, 2] or None (no drop path).
+    Returns the stream and this block's MLP branch, which the next site
+    adds."""
     B, N, D = x.shape
     dt = cfg.compute_dtype
-    qkv = cast_linear(layer_norm_to(x, blk.norm1, dt), blk.attn.qkv)
+    x, h = add_layer_norm(x, y, s, blk.norm1, dt)
+    qkv = cast_linear(h, blk.attn.qkv)
     q, k, v = qkv.view(B, N, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4).unbind(0)
     a = attention(q, k, v).transpose(1, 2).reshape(B, N, D)
-    y = cast_linear(a, blk.attn.proj).float()
-    x = x + (y if scales is None else y * scales[:, 0, None, None])
-    h = F.gelu(cast_linear(layer_norm_to(x, blk.norm2, dt), blk.mlp.fc1))
-    y = cast_linear(h, blk.mlp.fc2).float()
-    return x + (y if scales is None else y * scales[:, 1, None, None])
+    x, h = add_layer_norm(x, cast_linear(a, blk.attn.proj), None if scales is None else scales[:, 0], blk.norm2, dt)
+    h = F.gelu(cast_linear(h, blk.mlp.fc1))
+    return x, cast_linear(h, blk.mlp.fc2)
 
 
 def embed(vit: ViT, images: torch.Tensor) -> torch.Tensor:
@@ -219,7 +234,11 @@ def vit_apply(vit: ViT, images: torch.Tensor, drop_path_u: Optional[torch.Tensor
     if drop_path_u is not None:
         scales = drop_path_scales(cfg, drop_path_u).view(x.shape[0], cfg.depth, 2)
     with tracing.span("vit.blocks"):
+        y = s = None
         for i, blk in enumerate(vit.blocks):
-            x = _block(blk, x, cfg, None if scales is None else scales[:, i])
-        return vit.last_norm(x)
-
+            x, y = _block(blk, x, y, s, cfg, None if scales is None else scales[:, i])
+            s = None if scales is None else scales[:, i, 1]
+        # The last branch joins outside the op: `last_norm` stays a module
+        # call, which forward hooks read.
+        y = y.float()
+        return vit.last_norm(x + (y if s is None else y * s[:, None, None]))

@@ -46,8 +46,10 @@ The roots, each opened with `root=True` where it is called: `train.step`,
 `graph.captures`, `graph.replays`, `serve.requests`, `serve.rows`,
 `serve.padded_rows`, `serve.bucket.<b>`, `launch.<kernel>`, and in the
 HMR 2.0 model's forward `attn.calls.<backend>` (a
-`scaled_dot_product_attention` call, by the backend it takes) and
-`vit.tokens` (the tokens the ViT encodes).
+`scaled_dot_product_attention` call, by the backend it takes),
+`vit.tokens` (the tokens the ViT encodes) and `vit.tokens.add_ln.kernel` /
+`vit.tokens.add_ln.eager` (the rows the blocks' fused add + LayerNorm
+normalised on its CUDA kernels / its plain twin).
 """
 
 from __future__ import annotations
