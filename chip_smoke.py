@@ -3249,20 +3249,22 @@ def pa_tail(smi) -> dict:
     """What the eager PA-MPJPE tail costs a batch, on the most recently used
     evaluation graph (a stream batch): host wall of the replay alone and of
     the replay with the tail, and the tail between CUDA events."""
-    entry = next(reversed(evaluate._graphs.values()))
+    call = next(reversed(evaluate._graphs.values()))
+    gen = call.generators[0]
     item = train.step_seed(123, 0)
     alone, tail = [], []
     for _ in range(GRAPH_EVAL_TIMED):
         t0 = time.perf_counter()
-        entry.gen.manual_seed(item)
-        entry.graph.replay()
+        gen.manual_seed(item)
+        call.graph.replay()
         torch.cuda.synchronize()
         alone.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        entry(item)
+        gen.manual_seed(item)
+        evaluate._finish(*call.graph.replay())
         torch.cuda.synchronize()
         tail.append((time.perf_counter() - t0) * 1e3)
-    metrics_out, moments = entry.graph.outputs
+    metrics_out, moments = call.graph.outputs
     tail_ms = events_ms(lambda: evaluate._finish(metrics_out, moments), 10)
     out = {"replay_ms": statistics.median(alone), "with_tail_ms": statistics.median(tail), "tail_events_ms": tail_ms}
     print(
@@ -3276,21 +3278,22 @@ def pa_tail(smi) -> dict:
 
 @contextlib.contextmanager
 def counting_captures(store: list):
-    """Inside the block every `utils.graphs.capture` appends its graph to
-    `store`."""
+    """Inside the block every capture of a `utils.graphs.CapturedCall`
+    appends its graph to `store`."""
     from indirect_learning_pose_shape_tpu_torch.utils import graphs as graphs_lib
 
-    plain = graphs_lib.capture
+    plain = graphs_lib.CapturedCall.record
 
-    def capture(*args, **kwargs):
-        store.append(plain(*args, **kwargs))
-        return store[-1]
+    def record(call, *args, **kwargs):
+        outputs = plain(call, *args, **kwargs)
+        store.append(call.graph)
+        return outputs
 
-    graphs_lib.capture = capture
+    graphs_lib.CapturedCall.record = record
     try:
         yield
     finally:
-        graphs_lib.capture = plain
+        graphs_lib.CapturedCall.record = plain
 
 
 def graphed_eval(model, consts, qp, asset, ds, idd, smi) -> dict:

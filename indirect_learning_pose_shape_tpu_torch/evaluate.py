@@ -228,74 +228,42 @@ def _device_fn(kind: str, model, consts, cfg, qenc, int8_impl, gen: torch.Genera
 _GT = ("gt_pose", "gt_betas")
 
 
-class _EvalGraph:
-    """One evaluator's batch as a CUDA graph: a call on `item` reseeds the
-    stream's generator by `item` or copies the disk batch `item` into the
-    static inputs, replays, and finishes PA-MPJPE eagerly. The first call
-    runs the batch eagerly on the side stream as the warm-up, keeps its
-    metrics, then captures. `held` keeps what the graph reads alive and
-    says which tensors it was captured with."""
+def _runner(kind: str, model, consts, cfg, qparams, int8_impl, device, graphed: bool):
+    """`item -> metrics`: the stream's generator reseeded by `item`, or the
+    disk batch `item` staged, then the batch's device work (`_device_fn`)
+    and PA-MPJPE's tail eagerly. `graphed`: through the cached captured
+    call of each batch layout (see `_GRAPHS_KEPT`), captured anew where the
+    model's parameters or buffers are not the tensors it was captured with;
+    else eagerly, on `item` itself."""
+    calls: dict = {}
 
-    def __init__(self, kind, model, consts, cfg, qparams, int8_impl, device, held: list):
-        # Built here and held: a replay reads this encoder's tensors.
-        self.qenc = None if qparams is None else quant.as_encoder(qparams, cfg.model.encoder, device)
-        self.kind, self.device, self.held = kind, device, held + [qparams, self.qenc]
-        self.gen = torch.Generator(device=device)
-        self.fn = _device_fn(kind, model, consts, cfg, self.qenc, int8_impl, self.gen)
-        self.inputs: dict | None = None
-        self.graph: graphs_lib.Graph | None = None
-
-    def __call__(self, item) -> dict[str, torch.Tensor]:
-        if self.kind == "stream":
-            self.gen.manual_seed(item)
-            arg = item
-        else:
-            if self.inputs is None:
-                self.inputs = {k: torch.empty_like(v) for k, v in item.items()}
-            for k, v in item.items():
-                self.inputs[k].copy_(v)
-            arg = self.inputs
-        if self.graph is None:
-            out = graphs_lib.warm_up(lambda: self.fn(arg), self.device)
-            self.graph = graphs_lib.capture(lambda: self.fn(arg), self.device, generators=(self.gen,))
-        else:
-            out = self.graph.replay()
-        return _finish(*out)
-
-
-def _graph_runner(kind: str, model, consts, cfg, qparams, int8_impl, device):
-    """`item -> metrics` through the cached graph of each batch layout
-    (`_EvalGraph`), captured anew where the model's parameters or buffers
-    are not the tensors a cached graph was captured with."""
-    tensors = [model, consts, *model.parameters(), *model.buffers()]
-    mine: dict = {}
+    def call_for(layout) -> graphs_lib.CapturedCall:
+        key = (kind, id(model), id(consts), id(qparams), cfg, int8_impl, layout)
+        call = _graphs.pop(key, None) if graphed else None
+        if call is None:
+            # Built here and held by the call: a replay reads this encoder's tensors.
+            qenc = None if qparams is None else quant.as_encoder(qparams, cfg.model.encoder, device)
+            gen = torch.Generator(device=device)
+            fn = _device_fn(kind, model, consts, cfg, qenc, int8_impl, gen)
+            call = graphs_lib.CapturedCall(
+                fn, device, (gen,), lambda: [model, consts, qparams, *model.parameters(), *model.buffers()]
+            )
+        if graphed:
+            _graphs[key] = call
+            while len(_graphs) > _GRAPHS_KEPT:
+                _graphs.popitem(last=False)
+        return call
 
     def run(item):
         layout = None if kind == "stream" else tuple((k, v.shape, v.dtype) for k, v in item.items())
-        if layout not in mine:
-            key = (kind, id(model), id(consts), id(qparams), cfg, int8_impl, layout)
-            entry = _graphs.pop(key, None)
-            if entry is None or not graphs_lib.same_tensors(entry.held[: len(tensors)], tensors):
-                entry = _EvalGraph(kind, model, consts, cfg, qparams, int8_impl, device, tensors)
-            _graphs[key] = entry
-            while len(_graphs) > _GRAPHS_KEPT:
-                _graphs.popitem(last=False)
-            mine[layout] = entry
-        return mine[layout](item)
-
-    return run
-
-
-def _eager_runner(kind: str, model, consts, cfg, qparams, int8_impl, device):
-    """`item -> metrics` eagerly, one host launch an op."""
-    qenc = None if qparams is None else quant.as_encoder(qparams, cfg.model.encoder, device)
-    gen = torch.Generator(device=device)
-    fn = _device_fn(kind, model, consts, cfg, qenc, int8_impl, gen)
-
-    def run(item):
+        if layout not in calls:
+            calls[layout] = call_for(layout)
+        call = calls[layout]
         if kind == "stream":
-            gen.manual_seed(item)
-        return _finish(*fn(item))
+            call.generators[0].manual_seed(item)
+        elif graphed:
+            call.stage(item)
+        return _finish(*(call() if graphed else call.fn(item)))
 
     return run
 
@@ -327,8 +295,8 @@ def _mean_metrics(model, consts, cfg, kind, items, qparams=None, int8_impl="int8
     if int8_impl not in quant.IMPLS:
         raise ValueError(f"int8_impl must be one of {quant.IMPLS}, got {int8_impl!r}")
     device = consts.smpl.v_template.device
-    runner = _graph_runner if graphs and device.type == "cuda" else _eager_runner
-    run = runner(kind, model, consts, cfg, qparams, int8_impl, device)
+    graphed = graphs and graphs_lib.eager_reason(device) is None
+    run = _runner(kind, model, consts, cfg, qparams, int8_impl, device, graphed)
     sums: dict[str, torch.Tensor] = {}
     n = 0
     for item in items:

@@ -32,14 +32,16 @@ off process-wide (`utils.precision.disable_tf32`): float32 products on the
 card then match the reference's full-precision numbers.
 
 A request is the span `serve.request` (`utils/tracing.py`), its host work
-the child spans `serve.upload` (the images to the card), `serve.stage` (into
-the bucket's buffer, or padded on the eager route), `graph.replay`
-(`serve.forward` on the eager route) and `serve.clone`; it counts
+the child spans `serve.upload` (the images to the card), `serve.stage` (the
+images padded with zeros to the bucket: into the bucket's buffer, or a new
+one on the eager route), `graph.replay` (`serve.forward` on the eager
+route) and `serve.clone`; it counts
 `serve.requests`, `serve.rows`, `serve.padded_rows` and `serve.bucket.<b>`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,6 +54,15 @@ from indirect_learning_pose_shape_tpu_torch.utils import tracing
 from indirect_learning_pose_shape_tpu_torch.utils.precision import disable_tf32
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _forward(model, consts, cfg, qenc, int8_impl: str, images: torch.Tensor) -> dict:
+    """The eval forward of `images` [B, S, S, 3], through the quantized
+    encoder `qenc` under `int8_impl` when there is one."""
+    with torch.inference_mode():
+        if qenc is None:
+            return net.forward(model, consts, images, cfg)
+        return quant.quantized_forward(qenc, model.ief, consts, images, cfg, int8_impl)
 
 
 class Predictor:
@@ -81,9 +92,10 @@ class Predictor:
         self.qenc = (
             None if qparams is None else quant.as_encoder(qparams, cfg.encoder, self.device)
         )
-        self.graphs = graphs and self.device.type == "cuda"
+        self._run = functools.partial(_forward, self.model, consts, cfg, self.qenc, int8_impl)
+        self.graphs = graphs and graphs_lib.eager_reason(self.device) is None
         self._pool = None  # the buckets' shared graph memory pool, made at the first capture
-        self._bucket_graphs: dict[int, tuple[torch.Tensor, graphs_lib.Graph]] = {}
+        self._calls: dict[int, graphs_lib.CapturedCall] = {}
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -94,30 +106,23 @@ class Predictor:
             "split the request or extend buckets"
         )
 
-    def _run(self, images: torch.Tensor) -> dict:
-        with torch.inference_mode():
-            if self.qenc is None:
-                return net.forward(self.model, self.consts, images, self.cfg)
-            return quant.quantized_forward(
-                self.qenc, self.model.ief, self.consts, images, self.cfg, self.int8_impl
-            )
-
-    def _graph(self, b: int) -> tuple[torch.Tensor, graphs_lib.Graph]:
-        """Bucket `b`'s input buffer and graph, captured on first use."""
-        if b not in self._bucket_graphs:
-            size = self.cfg.image_size
-            static = torch.zeros((b, size, size, 3), device=self.device)
-            graphs_lib.warm_up(lambda: self._run(static), self.device)
+    def _call(self, b: int) -> graphs_lib.CapturedCall:
+        """Bucket `b`'s captured forward, its input buffer `inputs["images"]`,
+        captured on first use."""
+        if b not in self._calls:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = graphs_lib.capture(lambda: self._run(static), self.device, pool=self._pool)
-            self._bucket_graphs[b] = (static, graph)
-        return self._bucket_graphs[b]
+            size, run = self.cfg.image_size, self._run  # a call holding `self` would be a cycle
+            call = graphs_lib.CapturedCall(lambda x: run(x["images"]), self.device, pool=self._pool)
+            call.stage({"images": torch.zeros((b, size, size, 3), device=self.device)})
+            call()
+            self._calls[b] = call
+        return self._calls[b]
 
     def bucket_graph(self, b: int) -> Optional[graphs_lib.Graph]:
         """Bucket `b`'s graph, None before its capture or without graphs (its
         `seconds` and `pool_bytes` say what the capture cost)."""
-        return self._bucket_graphs[b][1] if b in self._bucket_graphs else None
+        return self._calls[b].graph if b in self._calls else None
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Capture every chosen bucket (all by default) before traffic; with
@@ -126,7 +131,7 @@ class Predictor:
         for b in buckets or self.buckets:
             n = self.bucket_for(b)
             if self.graphs:
-                self._graph(n)
+                self._call(n)
             else:
                 self._run(torch.zeros((n, size, size, 3), device=self.device))
 
@@ -143,20 +148,15 @@ class Predictor:
             tracing.count("serve.rows", n)
             tracing.count("serve.padded_rows", b - n)
             tracing.count(f"serve.bucket.{b}")
-            if self.graphs:
-                static, graph = self._graph(b)
-                with tracing.span("serve.stage"):
-                    static[:n].copy_(images)
-                    static[n:].zero_()
-                outputs = graph.replay()
-                with tracing.span("serve.clone"):
-                    return {k: v[:n].clone() for k, v in outputs.items()}
-            if b != n:
-                with tracing.span("serve.stage"):
-                    pad = images.new_zeros((b - n,) + tuple(images.shape[1:]))
-                    images = torch.cat([images, pad])
-            with tracing.span("serve.forward"):
-                outputs = self._run(images.contiguous())
-            if b != n:
-                outputs = {k: v[:n] for k, v in outputs.items()}
-            return outputs
+            call = self._call(b) if self.graphs else None
+            with tracing.span("serve.stage"):
+                x = images.new_empty((b, *images.shape[1:])) if call is None else call.inputs["images"]
+                x[:n].copy_(images)
+                x[n:].zero_()
+            if call is None:
+                with tracing.span("serve.forward"):
+                    outputs = self._run(x)
+            else:
+                outputs = call()
+            with tracing.span("serve.clone"):
+                return {k: v[:n].clone() for k, v in outputs.items()}

@@ -456,22 +456,6 @@ def fused_step(
     return terms
 
 
-def _graph_device(
-    consts: net.ModelConsts, mesh, name: str, eager: str = "train.fused_step"
-) -> Optional[torch.device]:
-    """The card a compiled step is captured on; None on the CPU, where it
-    runs eagerly. A gloo mesh is refused: gloo's collectives run on the
-    host, and a CUDA graph records device work only."""
-    dev = consts.smpl.v_template.device
-    if mesh is not None and mesh.backend != "nccl":
-        raise ValueError(
-            f"{name} captures the step as a CUDA graph, which cannot record the "
-            f"{mesh.backend} backend's host collectives: run the eager {eager} "
-            "(the train.fit_* loops do on such a mesh), or an NCCL mesh"
-        )
-    return dev if dev.type == "cuda" else None
-
-
 def _graph_tensors(ts: TrainState) -> list:
     """What a graph of `ts`'s step reads or writes in place and a caller
     could replace (`load_state_dict` replaces the optimizer's): the model,
@@ -486,189 +470,110 @@ def _graph_tensors(ts: TrainState) -> list:
     return out + (list(ts.ema.values()) if ts.ema is not None else [])
 
 
-class _GraphedStep:
-    """One training step as a CUDA graph: captured at the first call on a
-    state, after a real step that runs eagerly on the side stream as the
-    warm-up (`utils/graphs.py`), then replayed. Around each replay the host
-    reseeds the step's generator by (seed, step) and advances the schedule
-    (which fills the rate tensor for the next update) and `ts.step`, as the
-    eager step does."""
-
-    def __init__(self, cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, device: torch.device):
-        self.cfg, self.consts, self.mesh, self.device = cfg, consts, mesh, device
-        self.gen = torch.Generator(device=device)
-        self.graph: Optional[graphs.Graph] = None
-        self.captures = 0
-        self._bound: Optional[list] = None
-
-    def _capture(self, ts: TrainState, step_fn: Callable[[], dict]) -> dict:
-        """The warm-up step (a real one, eager), then the capture."""
-        bind_lr(ts.optimizer)
-        terms = graphs.warm_up(step_fn, self.device)
+def _graph_step(call: graphs.CapturedCall, ts: TrainState) -> dict:
+    """One step of `ts` through `call`: when stale, `bind_lr`, the warm-up
+    step (a real one, eager), `_advance` and the capture; else a replay,
+    then `_advance`, the host's part of the step (the schedule fills the
+    rate tensor for the next update)."""
+    with tracing.span("train.stale_check"):
+        stale = call.stale(ts)
+    if stale:
+        with tracing.span("train.capture"):
+            bind_lr(ts.optimizer)
+            return call.record(ts, between=lambda: _advance(ts))
+    terms = call.graph.replay()
+    with tracing.span("train.advance"):
         _advance(ts)
-        self.graph = graphs.capture(step_fn, self.device, generators=(self.gen,))
-        self.captures += 1
-        self._bound = _graph_tensors(ts)
-        return terms
-
-    def _stale(self, ts: TrainState) -> bool:
-        return self.graph is None or not graphs.same_tensors(self._bound, _graph_tensors(ts))
-
-    def _step(self, ts: TrainState, step_fn: Callable[[], dict]) -> dict:
-        """One step: captured when the graph is stale, else replayed, then
-        the host's part (`_advance`)."""
-        with tracing.span("train.stale_check"):
-            stale = self._stale(ts)
-        if stale:
-            with tracing.span("train.capture"):
-                return self._capture(ts, step_fn)
-        terms = self.graph.replay()
-        with tracing.span("train.advance"):
-            _advance(ts)
-        return terms
-
-    @staticmethod
-    def _clone(terms: dict) -> dict[str, torch.Tensor]:
-        with tracing.span("train.clone"):
-            return {k: v.clone() for k, v in terms.items()}
+    return terms
 
 
-class FusedStepGraph(_GraphedStep):
-    """`compile_fused_step`'s callable on the card: `fn(ts)` runs
-    `cfg.steps_per_call` steps (`fn(ts, k)`: k), each a replay of one
-    captured fused step (its batch generated on the device from the
-    generator seeded by (seed, step), then the update), and returns clones
-    of the last step's terms. `captures`, and the last graph's `seconds`
-    and `pool_bytes`, say what capturing cost."""
-
-    def __call__(self, ts: TrainState, num_steps: Optional[int] = None) -> dict[str, torch.Tensor]:
-        cfg, consts, mesh = self.cfg, self.consts, self.mesh
-
-        def step():
-            batch = _draw_batch(self.gen, cfg.batch_size, consts, cfg, mesh)
-            return _step_on_device(ts, batch, consts, cfg, mesh)
-
-        n = cfg.steps_per_call if num_steps is None else num_steps
-        for i in range(n):
-            with tracing.span("train.step", root=True):
-                with tracing.span("train.reseed"):
-                    self.gen.manual_seed(step_seed(ts.seed, ts.step))
-                terms = self._step(ts, step)
-                if i == n - 1:  # the call's clones belong to its last step
-                    terms = self._clone(terms)
-        return terms
+def _clone(terms: dict) -> dict[str, torch.Tensor]:
+    with tracing.span("train.clone"):
+        return {k: v.clone() for k, v in terms.items()}
 
 
 def compile_fused_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
     """The reference's single-dispatch step (its `compile_fused_step`):
-    `fn(ts) -> terms` runs `cfg.steps_per_call` fused steps, batch
-    generation and update, and returns the last step's terms.
+    `fn(ts) -> terms` runs `cfg.steps_per_call` fused steps (`fn(ts, k)`:
+    k), batch generation and update, and returns clones of the last step's
+    terms.
 
-    On the card (`FusedStepGraph`): one step captured as a CUDA graph at
-    the first call and replayed once a step, each replay reseeded for its
-    own step, so the steps equal the eager `fused_step`'s bitwise. A state
-    whose optimizer state was replaced since (a checkpoint loaded) is
-    captured again. Under an NCCL mesh the graph records the step's
+    On the card (a `graphs.CapturedCall`): one step captured as a CUDA graph
+    at the first call and replayed once a step, its batch drawn from a
+    registered generator reseeded by (seed, step) before each step, so the
+    steps equal the eager `fused_step`'s bitwise. A state whose optimizer
+    state was replaced since (a checkpoint loaded) is captured again.
+    `captures`, and the last graph's `seconds` and `pool_bytes`, say what
+    capturing cost. Under an NCCL mesh the graph records the step's
     collectives; a gloo mesh is refused (ValueError). A capture that fails
     raises: there is no eager fallback on the card. On the CPU `fn` is the
     eager `fused_step`."""
-    dev = _graph_device(consts, mesh, "compile_fused_step")
-    if dev is None:
-        return lambda ts, num_steps=None: fused_step(
-            ts, consts, cfg if num_steps is None else dataclasses.replace(cfg, steps_per_call=num_steps),
-            mesh,
-        )
-    return FusedStepGraph(cfg, consts, mesh, dev)
+    dev = consts.smpl.v_template.device
+    if graphs.eager_reason(dev, mesh, refuse=("compile_fused_step", "train.fused_step")):
+        return _eager_fused_step(cfg, consts, mesh)
+    gen = torch.Generator(device=dev)
+
+    def device_step(inputs, ts: TrainState) -> dict:
+        batch = _draw_batch(gen, cfg.batch_size, consts, cfg, mesh)
+        return _step_on_device(ts, batch, consts, cfg, mesh)
+
+    def steps(call, ts: TrainState, num_steps: Optional[int] = None) -> dict[str, torch.Tensor]:
+        n = cfg.steps_per_call if num_steps is None else num_steps
+        for i in range(n):
+            with tracing.span("train.step", root=True):
+                with tracing.span("train.reseed"):
+                    gen.manual_seed(step_seed(ts.seed, ts.step))
+                terms = _graph_step(call, ts)
+                if i == n - 1:  # the call's clones belong to its last step
+                    terms = _clone(terms)
+        return terms
+
+    return graphs.CapturedCall(device_step, dev, (gen,), _graph_tensors, policy=steps)
 
 
-class _BatchGraph:
-    """`compile_train_fns`'s `gen_fn` on the card: `make_batch` as a CUDA
-    graph, its generator reseeded by (seed, step) before each replay;
-    returns clones of the batch."""
+def _staged_step(reseed: Optional[Callable[[TrainState], None]] = None) -> Callable:
+    """The policy of a compiled step on a batch, `(call, ts, batch) ->
+    clones of the terms`: `reseed(ts)`, the batch copied into the call's
+    static inputs, one `_graph_step`."""
 
-    def __init__(self, cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, device: torch.device):
-        self.gen = torch.Generator(device=device)
-        self.fn = lambda: _draw_batch(self.gen, cfg.batch_size, consts, cfg, mesh)
-        self.device = device
-        self.graph: Optional[graphs.Graph] = None
-
-    def __call__(self, seed: int, step: int) -> dict[str, torch.Tensor]:
-        if self.graph is None:
-            graphs.warm_up(self.fn, self.device)
-            self.graph = graphs.capture(self.fn, self.device, generators=(self.gen,))
-        self.gen.manual_seed(step_seed(seed, step))
-        return {k: v.clone() for k, v in self.graph.replay().items()}
-
-
-class TrainStepGraph(_GraphedStep):
-    """`compile_train_fns`'s `step_fn` on the card: `fn(ts, batch)` copies
-    the batch into the graph's input buffers and replays one captured
-    `train_step`; returns clones of the terms. A batch of other keys,
-    shapes or types is captured again, with its own buffers. The copies run
-    on the current stream, so they follow whatever that stream waits on
-    (the prefetcher's copy event)."""
-
-    def __init__(self, cfg, consts, mesh, device):
-        super().__init__(cfg, consts, mesh, device)
-        self.inputs: Optional[dict[str, torch.Tensor]] = None
-
-    def _device_step(self, ts: TrainState, inputs: dict) -> dict:
-        return _step_on_device(ts, inputs, self.consts, self.cfg, self.mesh)
-
-    def _reseed(self, ts: TrainState) -> None:
-        """Reseed the step's generator before the replay (none here)."""
-
-    def __call__(self, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+    def step(call, ts: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         with tracing.span("train.step", root=True):
-            self._reseed(ts)
+            if reseed is not None:
+                with tracing.span("train.reseed"):
+                    reseed(ts)
             with tracing.span("train.copy_in"):
-                layout = {k: (v.shape, v.dtype) for k, v in batch.items()}
-                if self.inputs is None or layout != {k: (v.shape, v.dtype) for k, v in self.inputs.items()}:
-                    self.inputs, self.graph = {k: torch.empty_like(v, device=self.device) for k, v in batch.items()}, None
-                for k, v in batch.items():
-                    self.inputs[k].copy_(v)
-            inputs = self.inputs
-            return self._clone(self._step(ts, lambda: self._device_step(ts, inputs)))
+                call.stage(batch)
+            return _clone(_graph_step(call, ts))
 
-
-class DataStepGraph(TrainStepGraph):
-    """`compile_data_step`'s callable on the card: `fn(ts, batch)` copies a
-    prefetched batch into the graph's input buffers, reseeds the
-    augmentation generator by (seed, step, 1) and replays one captured disk
-    step; returns clones of the terms. The step is `data_train_step`'s
-    device work on a raw batch (the draws from the registered generator,
-    the rank's rows of them, `preprocess_raw_batch`, the band cut, the
-    update), or `_local_step`'s on a preprocessed one (`raw=False`)."""
-
-    def __init__(self, cfg, consts, mesh, device, raw: bool):
-        super().__init__(cfg, consts, mesh, device)
-        self.raw = raw
-
-    def _device_step(self, ts: TrainState, inputs: dict) -> dict:
-        batch = inputs
-        if self.raw:
-            batch = _disk_batch(inputs, self.cfg, self.mesh, lambda n: _draw_augment(self.gen, n, self.cfg))
-        return _step_on_device(ts, _local_batch(batch, self.mesh), self.consts, self.cfg, self.mesh)
-
-    def _reseed(self, ts: TrainState) -> None:
-        with tracing.span("train.reseed"):
-            self.gen.manual_seed(step_seed(ts.seed, ts.step, _AUGMENT_STREAM))
+    return step
 
 
 def compile_train_fns(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None):
     """The reference's `compile_train_fns`: `(gen_fn, step_fn)`, with
     `gen_fn(seed, step)` the batch of `make_batch` and `step_fn(ts, batch)`
-    the `train_step` on it, each a CUDA graph on the card (`_BatchGraph`,
-    `TrainStepGraph`; equal to the eager functions bitwise) and the eager
+    the `train_step` on it, each a CUDA graph on the card (equal to the
+    eager functions bitwise; `gen_fn`'s generator reseeded by (seed, step)
+    before each call, `step_fn`'s batch copied into static inputs, captured
+    again for a batch of other keys, shapes or types) and the eager
     functions on the CPU. A gloo mesh is refused, as by
     `compile_fused_step`."""
-    dev = _graph_device(consts, mesh, "compile_train_fns")
-    if dev is None:
+    dev = consts.smpl.v_template.device
+    if graphs.eager_reason(dev, mesh, refuse=("compile_train_fns", "train.fused_step")):
         return (
             lambda seed, step: make_batch(seed, step, cfg.batch_size, consts, cfg, mesh),
             lambda ts, batch: train_step(ts, batch, consts, cfg, mesh),
         )
-    return _BatchGraph(cfg, consts, mesh, dev), TrainStepGraph(cfg, consts, mesh, dev)
+    gen = torch.Generator(device=dev)
+    batch_call = graphs.CapturedCall(lambda inputs: _draw_batch(gen, cfg.batch_size, consts, cfg, mesh), dev, (gen,))
+
+    def gen_fn(seed: int, step: int) -> dict[str, torch.Tensor]:
+        gen.manual_seed(step_seed(seed, step))
+        return {k: v.clone() for k, v in batch_call().items()}
+
+    def device_step(inputs: dict, ts: TrainState) -> dict:
+        return _step_on_device(ts, inputs, consts, cfg, mesh)
+
+    return gen_fn, graphs.CapturedCall(device_step, dev, bound=_graph_tensors, policy=_staged_step())
 
 
 def compile_data_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=None, raw: bool = True):
@@ -678,20 +583,42 @@ def compile_data_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh=No
     `_local_step` on a preprocessed one (its `_step_jit` as
     `fit_preprocessed` calls it).
 
-    On the card (`DataStepGraph`): one step captured as a CUDA graph at
-    the first call, after a real step that is its warm-up, and replayed once
-    a step, its batch copied into static buffers and its augmentation draws
-    from a registered generator reseeded by (seed, step, 1), so the steps
-    equal the eager ones bitwise. A batch of another layout, or a state
-    whose optimizer state was replaced since, is captured again. Under an
-    NCCL mesh the graph records the collectives; a gloo mesh is refused
-    (ValueError). A capture that fails raises. On the CPU `fn` is the eager
-    step."""
+    On the card (a `graphs.CapturedCall`): one step captured as a CUDA
+    graph at the first call, after a real step that is its warm-up, and
+    replayed once a step, its batch copied into static buffers and its
+    augmentation draws from a registered generator reseeded by (seed, step,
+    1), so the steps equal the eager ones bitwise: the step is
+    `data_train_step`'s device work on a raw batch (the draws, the rank's
+    rows of them, `preprocess_raw_batch`, the band cut, the update), or
+    `_local_step`'s on a preprocessed one. A batch of another layout, or a
+    state whose optimizer state was replaced since, is captured again.
+    Under an NCCL mesh the graph records the collectives; a gloo mesh is
+    refused (ValueError). A capture that fails raises. On the CPU `fn` is
+    the eager step."""
+    dev = consts.smpl.v_template.device
     eager_name = "train.data_train_step" if raw else "train.train_step"
-    dev = _graph_device(consts, mesh, "compile_data_step", eager_name)
-    if dev is None:
+    if graphs.eager_reason(dev, mesh, refuse=("compile_data_step", eager_name)):
         return _eager_data_step(cfg, consts, mesh, raw)
-    return DataStepGraph(cfg, consts, mesh, dev, raw)
+    gen = torch.Generator(device=dev)
+
+    def device_step(inputs: dict, ts: TrainState) -> dict:
+        batch = inputs
+        if raw:
+            batch = _disk_batch(inputs, cfg, mesh, lambda n: _draw_augment(gen, n, cfg))
+        return _step_on_device(ts, _local_batch(batch, mesh), consts, cfg, mesh)
+
+    def reseed(ts: TrainState) -> None:
+        gen.manual_seed(step_seed(ts.seed, ts.step, _AUGMENT_STREAM))
+
+    return graphs.CapturedCall(device_step, dev, (gen,), _graph_tensors, policy=_staged_step(reseed))
+
+
+def _eager_fused_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh):
+    """`fn(ts, k=None)`: the eager `fused_step` of `k` steps (default
+    `cfg.steps_per_call`)."""
+    return lambda ts, num_steps=None: fused_step(
+        ts, consts, cfg if num_steps is None else dataclasses.replace(cfg, steps_per_call=num_steps), mesh
+    )
 
 
 def _eager_data_step(cfg: configs.TrainConfig, consts: net.ModelConsts, mesh, raw: bool):
@@ -876,33 +803,16 @@ def _auto_mesh(cfg: configs.TrainConfig, device: torch.device | str = "cuda"):
     return mesh_lib.make_mesh(n, device)
 
 
-def _fit_route(
-    consts: net.ModelConsts, mesh, graph: str = "compile_fused_step", eager: str = "fused_step"
-) -> str:
+def _fit_route(graph: str, eager: str, reason: Optional[str], mesh) -> str:
     """How a `fit_*` loop runs its steps, said in its first log line: the
     CUDA graph of `graph` (`compile_fused_step`, or `compile_data_step` for
-    the disk steps) wherever it can capture (the card, alone or on an NCCL
-    mesh), else the eager step `eager`: on the CPU, on a gloo mesh (host
-    collectives), and under anomaly mode (`--debug-nans`), which checks
-    every op on the host as it runs."""
-    if consts.smpl.v_template.device.type != "cuda":
-        return f"eager {eager} (CPU)"
-    if mesh is not None and mesh.backend != "nccl":
-        return f"eager {eager} ({mesh.backend} mesh: host collectives)"
-    if torch.is_anomaly_enabled():
-        return f"eager {eager} (anomaly mode, --debug-nans)"
+    the disk steps), or, where `graphs.eager_reason` gives a `reason`, the
+    eager step `eager`."""
+    if reason is not None:
+        return f"eager {eager} ({reason})"
     return f"graph: {graph}, one CUDA graph replay a step" + (
         "" if mesh is None else f" (NCCL mesh of {mesh.world})"
     )
-
-
-# The route names of each loop: (graph, eager step), by `_run`'s `raw`
-# (None: the synthetic stream).
-_ROUTE_NAMES = {
-    None: ("compile_fused_step", "fused_step"),
-    True: ("compile_data_step", "data_train_step"),
-    False: ("compile_data_step(raw=False)", "train_step"),
-}
 
 
 def _run(
@@ -920,7 +830,8 @@ def _run(
     step, device, mesh)` gives the device batches from the resumed step and
     each is one disk step, `data_train_step` on a raw batch or `_local_step`
     on a preprocessed one (`raw=False`), `compile_data_step`'s graph on the
-    card. `_fit_route` picks the route and the first log line names it.
+    card. `graphs.eager_reason` picks the route and the first log line
+    names it (`_fit_route`).
     Under a mesh (`_auto_mesh`) the ranks run on `mesh.device`, rank 0 alone
     writes checkpoints, metrics and `log`, and the ranks meet at the end,
     once the last checkpoint is on disk."""
@@ -943,14 +854,15 @@ def _run(
             file=sys.stderr,
         )
     batches = None if source is None else source(start, consts.smpl.v_template.device, mesh)
-    route = _fit_route(consts, mesh, *_ROUTE_NAMES[None if source is None else raw])
+    reason = graphs.eager_reason(consts.smpl.v_template.device, mesh, torch.is_anomaly_enabled())
+    if source is None:
+        graph, eager = "compile_fused_step", "fused_step"
+        step_fn = (compile_fused_step if reason is None else _eager_fused_step)(cfg, consts, mesh)
+    else:
+        graph, eager = ("compile_data_step", "data_train_step") if raw else ("compile_data_step(raw=False)", "train_step")
+        step_fn = (compile_data_step if reason is None else _eager_data_step)(cfg, consts, mesh, raw)
     if lead:
-        print(f"fit: {route}", file=sys.stderr)
-    step_fn = None
-    if route.startswith("graph"):
-        step_fn = compile_fused_step(cfg, consts, mesh) if source is None else compile_data_step(cfg, consts, mesh, raw)
-    elif source is not None:
-        step_fn = _eager_data_step(cfg, consts, mesh, raw)
+        print(f"fit: {_fit_route(graph, eager, reason, mesh)}", file=sys.stderr)
     writer = (
         metrics.MetricsWriter(cfg.metrics_path, tensorboard_dir=cfg.tensorboard_dir)
         if lead else metrics.MetricsWriter(print_every=0)
@@ -961,11 +873,7 @@ def _run(
         while ts.step < num_steps:
             first = ts.step
             if batches is None:
-                k = min(cfg.steps_per_call, num_steps - first)
-                if step_fn is not None:
-                    terms = step_fn(ts, k)
-                else:
-                    terms = fused_step(ts, consts, dataclasses.replace(cfg, steps_per_call=k), mesh)
+                terms = step_fn(ts, min(cfg.steps_per_call, num_steps - first))
             else:
                 terms = step_fn(ts, next(batches))
             if any(s % le == 0 for s in range(first, ts.step)) or ts.step == num_steps:

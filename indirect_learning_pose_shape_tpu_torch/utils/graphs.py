@@ -3,10 +3,12 @@
 The reference compiles its step and its serving forward into one XLA
 executable each and dispatches it once a step or a request. On the card the
 counterpart is a CUDA graph: the kernels of one call of the eager code are
-recorded once and replayed with one launch. This module does the four things
-the compiled entry points (`train.compile_fused_step`,
-`train.compile_train_fns`, the per-bucket graphs of `serve.Predictor`)
-share:
+recorded once and replayed with one launch. `CapturedCall` owns such a call
+from its first call to its replays, for every compiled entry point
+(`train.compile_fused_step`, `train.compile_train_fns`,
+`train.compile_data_step`, the evaluators' cached graphs, the per-bucket
+graphs of `serve.Predictor`), and `eager_reason` says for each of them, and
+for `train.fit`, whether a call runs as a graph or eagerly. Underneath:
 
 - `warm_up` runs a call on a side stream before capture, so that every
   first-use cost (the kernel library's build and its shared-memory opt-in,
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
@@ -146,3 +148,110 @@ def same_tensors(a: Optional[list], b: list) -> bool:
     compiled call makes before it replays, since a graph reads and writes
     the memory of the tensors it was captured with."""
     return a is not None and len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def eager_reason(device: torch.device, mesh=None, anomaly: bool = False, refuse: tuple = ()) -> Optional[str]:
+    """Graph or eager: None where a call on `device` (under `mesh`) runs as
+    a CUDA graph, else why it runs eagerly, in the words of `train.fit`'s
+    first log line: on the CPU; under a mesh whose collectives run on the
+    host (gloo), which a graph cannot record; with `anomaly` set (fit under
+    `--debug-nans`), which checks every op on the host as it runs. A
+    compiled entry point that promises a graph names itself and its eager
+    step in `refuse`: a host mesh then raises ValueError, on any device."""
+    host_mesh = mesh is not None and mesh.backend != "nccl"
+    if host_mesh and refuse:
+        name, eager = refuse
+        raise ValueError(
+            f"{name} captures the step as a CUDA graph, which cannot record the "
+            f"{mesh.backend} backend's host collectives: run the eager {eager} "
+            "(the train.fit_* loops do on such a mesh), or an NCCL mesh"
+        )
+    if torch.device(device).type != "cuda":
+        return "CPU"
+    if host_mesh:
+        return f"{mesh.backend} mesh: host collectives"
+    if anomaly:
+        return "anomaly mode, --debug-nans"
+    return None
+
+
+class CapturedCall:
+    """A call of `fn(inputs, *args)` as a CUDA graph on `device`, from its
+    first call to its replays.
+
+    - Staged inputs: `stage(batch)` copies a dict of tensors into static
+      buffers (`inputs`) on the current stream, so the copies follow
+      whatever that stream waits on (the prefetcher's copy event); buffers
+      of other keys, shapes or dtypes are made anew and the graph dropped.
+      A call that stages nothing gets `inputs` None.
+    - Staleness: the call is captured again when `bound(*args)`, the
+      tensors the graph reads or writes in place that a caller could
+      replace, are not the ones it was captured with (`same_tensors`); the
+      list is held meanwhile, so their memory is not reused.
+    - Generators: each of `generators` is registered with the graph; the
+      caller reseeds them before each call.
+    - The first call (`record`) runs `fn` eagerly on the side stream as the
+      warm-up and returns its result; the capture follows. `captures`
+      counts them, and `graph` (its `seconds`, `pool_bytes`) is the last.
+    - `pool`: a memory pool shared with other graphs (None: its own).
+
+    Calling it runs `policy(self, *args)`, the caller's own work around the
+    graph (reseeds, spans, the host's part of a step), or without one,
+    `record(*args)` when `stale(*args)`, else a replay.
+
+    `fn`, `bound` and `policy` must not hold what holds the call: a graph
+    in a reference cycle is freed by the cyclic collector, which may run in
+    the middle of another capture, and freeing a graph there breaks it."""
+
+    def __init__(
+        self,
+        fn: Callable,
+        device: torch.device,
+        generators: Iterable[torch.Generator] = (),
+        bound: Optional[Callable[..., list]] = None,
+        pool=None,
+        policy: Optional[Callable] = None,
+    ):
+        self.fn, self.device, self.generators = fn, device, tuple(generators)
+        self.bound, self.pool, self.policy = bound, pool, policy
+        self.inputs: Optional[dict[str, torch.Tensor]] = None
+        self.graph: Optional[Graph] = None
+        self.captures = 0
+        self._held: Optional[list] = None
+
+    def stage(self, batch: dict[str, torch.Tensor]) -> None:
+        """Copy `batch` into the static input buffers (see the class)."""
+        buffers = self.inputs
+        if buffers is None or buffers.keys() != batch.keys() or any(
+            v.shape != buffers[k].shape or v.dtype != buffers[k].dtype for k, v in batch.items()
+        ):
+            self.inputs = buffers = {k: torch.empty_like(v, device=self.device) for k, v in batch.items()}
+            self.graph = None
+        for k, v in batch.items():
+            buffers[k].copy_(v)
+
+    def stale(self, *args) -> bool:
+        """Whether the next call must capture: no graph yet (or its inputs
+        were made anew), or bound tensors replaced since its capture."""
+        return self.graph is None or (
+            self.bound is not None and not same_tensors(self._held, self.bound(*args))
+        )
+
+    def record(self, *args, between: Optional[Callable[[], None]] = None) -> Any:
+        """The warm-up call, eager on the side stream, then `between()`,
+        then the capture of the same call; returns the warm-up's result."""
+        def run():
+            return self.fn(self.inputs, *args)
+
+        outputs = warm_up(run, self.device)
+        if between is not None:
+            between()
+        self.graph = capture(run, self.device, self.pool, self.generators)
+        self.captures += 1
+        self._held = None if self.bound is None else self.bound(*args)
+        return outputs
+
+    def __call__(self, *args, **kwargs):
+        if self.policy is not None:
+            return self.policy(self, *args, **kwargs)
+        return self.record(*args) if self.stale(*args) else self.graph.replay()

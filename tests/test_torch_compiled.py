@@ -5,19 +5,25 @@ give the arrays they gave before; the optimizer's rate binding and the
 checkpoint it writes are device-neutral; a gloo mesh is refused; `fit`
 names its route; the graph helper's launch accounting on a stub graph.
 
-The CUDA graphs themselves are captured only on the card, where
-`chip_smoke.py`'s graphs phase holds them to the eager step bitwise.
+The graph routes run here under a stub capture (`stub_graphs`: the CPU
+taken for a card, each replay a rerun of the captured call): the
+`graphs.CapturedCall` that every compiled path uses, and the compiled
+steps and the Predictor on it, against their eager functions. The CUDA
+graphs themselves are captured only on the card, where `chip_smoke.py`'s
+graphs phase holds them to the eager step bitwise.
 """
 
 import copy
 import dataclasses
+import gc
 import types
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
-from indirect_learning_pose_shape_tpu_torch import configs, serve, train
+from indirect_learning_pose_shape_tpu_torch import configs, evaluate, serve, train
 from indirect_learning_pose_shape_tpu_torch.data import synthetic
 from indirect_learning_pose_shape_tpu_torch.models import encoder as enc
 from indirect_learning_pose_shape_tpu_torch.models import ief
@@ -54,17 +60,40 @@ def _assert_same_state(a, b):
             assert torch.equal(sa[k], sb[k]), k
     for k in a.ema:
         assert torch.equal(a.ema[k], b.ema[k]), k
-    assert (a.step, a.scheduler.get_last_lr()) == (b.step, b.scheduler.get_last_lr())
+    assert a.step == b.step
+    assert a.scheduler is None or a.scheduler.get_last_lr() == b.scheduler.get_last_lr()
 
 
-@pytest.mark.parametrize("per_call", [1, 2])
-def test_compile_fused_step_on_cpu_is_fused_step(tiny_asset, per_call):
-    """Three steps: calls of `steps_per_call` steps, then a one-step
-    remainder (`fn(ts, 1)`, as `fit` calls it); terms and state bitwise the
-    eager `fused_step`'s."""
-    cfg = _cfg(steps_per_call=per_call)
-    ts_c, consts = _state(tiny_asset, cfg)
-    ts_e, _ = _state(tiny_asset, cfg)
+@pytest.fixture
+def stub_graphs(monkeypatch):
+    """The graph routes on the CPU: `graphs.eager_reason` decides as for a
+    card, the warm-up runs in place, and a stub capture keeps the call,
+    which each replay runs again eagerly on what it was captured with, as
+    a CUDA graph's replay reruns its kernels on the tensors they were
+    captured on. Returns the generators that each capture registered."""
+    registered = []
+    decide = graphs.eager_reason
+    monkeypatch.setattr(graphs, "eager_reason", lambda device, *args, **kw: decide(torch.device("cuda"), *args, **kw))
+    monkeypatch.setattr(graphs, "warm_up", lambda fn, device: fn())
+
+    def capture(fn, device, pool=None, generators=()):
+        registered.append(tuple(generators))
+        g = graphs.Graph(None, None, {}, 0.0, 0)
+        g.graph = types.SimpleNamespace(replay=lambda: setattr(g, "outputs", fn()))
+        return g
+
+    monkeypatch.setattr(graphs, "capture", capture)
+    return registered
+
+
+def _fused_steps_match(asset, per_call, **kw):
+    """Three steps through `compile_fused_step`: calls of `steps_per_call`
+    steps, then a one-step remainder (`fn(ts, 1)`, as `fit` calls it);
+    terms and state bitwise the eager `fused_step`'s. Returns the compiled
+    step and both states."""
+    cfg = _cfg(steps_per_call=per_call, **kw)
+    ts_c, consts = _state(asset, cfg)
+    ts_e, _ = _state(asset, cfg)
     fn = train.compile_fused_step(cfg, consts)
     for _ in range(2 // per_call):
         got, want = fn(ts_c), train.fused_step(ts_e, consts, cfg)
@@ -75,22 +104,109 @@ def test_compile_fused_step_on_cpu_is_fused_step(tiny_asset, per_call):
     assert all(torch.equal(got[k], want[k]) for k in want)
     assert ts_c.step == 3
     _assert_same_state(ts_c, ts_e)
+    return fn, ts_c, ts_e, consts, cfg
 
 
-def test_compile_train_fns_on_cpu(tiny_asset):
+@pytest.mark.parametrize("per_call", [1, 2])
+def test_compile_fused_step_on_cpu_is_fused_step(tiny_asset, per_call):
+    """On the CPU `compile_fused_step` is the eager `fused_step`, bitwise
+    (`_fused_steps_match`)."""
+    fn, *_ = _fused_steps_match(tiny_asset, per_call)
+    assert not isinstance(fn, graphs.CapturedCall)
+
+
+@pytest.mark.parametrize("per_call", [1, 2])
+def test_the_graph_route_of_compile_fused_step_is_fused_step(tiny_asset, stub_graphs, per_call):
+    """The graph route (a stub capture): the batch's generator registered
+    and reseeded by (seed, step) before each step, `_advance` after each,
+    the steps bitwise the eager `fused_step`'s in one capture; a loaded
+    checkpoint (new optimizer state tensors) captures again, and the steps
+    after it still match. A constant rate: on the CPU the schedule sets
+    the rate as a new number each step (on the card it fills a tensor),
+    which the stale check would take for a replaced tensor."""
+    fn, ts_c, ts_e, consts, cfg = _fused_steps_match(tiny_asset, per_call, lr_schedule="constant")
+    assert isinstance(fn, graphs.CapturedCall) and fn.captures == 1 and len(stub_graphs[0]) == 1
+    train.load_state_dict(ts_c, copy.deepcopy(train.state_dict(ts_e)))
+    got, want = fn(ts_c, 1), train.fused_step(ts_e, consts, dataclasses.replace(cfg, steps_per_call=1))
+    assert fn.captures == 2 and all(torch.equal(got[k], want[k]) for k in want)
+    got, want = fn(ts_c, 1), train.fused_step(ts_e, consts, dataclasses.replace(cfg, steps_per_call=1))
+    assert fn.captures == 2 and all(torch.equal(got[k], want[k]) for k in want)
+    _assert_same_state(ts_c, ts_e)
+
+
+def _train_fns_match(asset, steps=2, **kw):
     """`gen_fn(seed, step)` is `make_batch`'s batch, and `step_fn` the
-    eager `train_step`, bitwise."""
-    cfg = _cfg()
-    ts_c, consts = _state(tiny_asset, cfg)
-    ts_e, _ = _state(tiny_asset, cfg)
+    eager `train_step`, bitwise. Returns `step_fn` and both states."""
+    cfg = _cfg(**kw)
+    ts_c, consts = _state(asset, cfg)
+    ts_e, _ = _state(asset, cfg)
     gen_fn, step_fn = train.compile_train_fns(cfg, consts)
-    for step in range(2):
+    for step in range(steps):
         batch = gen_fn(7, step)
         want_batch = train.make_batch(7, step, BATCH, consts, cfg)
         assert all(torch.equal(batch[k], want_batch[k]) for k in want_batch)
         got, want = step_fn(ts_c, batch), train.train_step(ts_e, want_batch, consts, cfg)
         assert all(torch.equal(got[k], want[k]) for k in want)
     _assert_same_state(ts_c, ts_e)
+    return step_fn, ts_c, ts_e, consts, cfg
+
+
+def test_compile_train_fns_on_cpu(tiny_asset):
+    """On the CPU both are the eager functions (`_train_fns_match`)."""
+    _train_fns_match(tiny_asset)
+
+
+def test_the_graph_route_of_compile_train_fns_is_eager(tiny_asset, stub_graphs):
+    """The graph route (a stub capture): three batches and steps bitwise
+    the eager ones, `step_fn` in one capture; a batch of another layout
+    captures again (a constant rate, as for `compile_fused_step`)."""
+    step_fn, ts_c, ts_e, consts, cfg = _train_fns_match(tiny_asset, steps=3, lr_schedule="constant")
+    assert step_fn.captures == 1 and len(stub_graphs) == 2
+    batch = {k: v[:1] for k, v in train.make_batch(7, 3, BATCH, consts, cfg).items()}
+    got, want = step_fn(ts_c, batch), train.train_step(ts_e, batch, consts, cfg)
+    assert step_fn.captures == 2 and all(torch.equal(got[k], want[k]) for k in want)
+    _assert_same_state(ts_c, ts_e)
+
+
+def test_a_captured_call_stages_replays_and_captures_anew(stub_graphs):
+    """`graphs.CapturedCall` (a stub capture): the first call returns the
+    warm-up's result and captures once, its generator registered; a batch
+    of the same layout is copied into the same static buffers and replays,
+    with the draws of the seed set before it; a new layout makes new
+    buffers and captures again; so does a replaced bound tensor."""
+    gen = torch.Generator()
+    runs = []
+
+    def fn(inputs, weights):
+        runs.append(inputs)
+        return inputs["x"] * weights[0] + torch.rand((), generator=gen)
+
+    def eager(x, w, seed):
+        return x * w + torch.rand((), generator=torch.Generator().manual_seed(seed))
+
+    w = [torch.tensor(2.0)]
+    call = graphs.CapturedCall(fn, torch.device("cpu"), (gen,), bound=list)
+    x = torch.arange(3.0)
+    call.stage({"x": x})
+    buf = call.inputs["x"]
+    assert buf is not x and torch.equal(buf, x)
+    gen.manual_seed(1)
+    assert torch.equal(call(w), eager(x, 2.0, 1))
+    assert call.captures == 1 and len(runs) == 1 and stub_graphs == [(gen,)]
+    x.add_(1)  # the buffer holds a copy
+    assert torch.equal(buf, x - 1)
+    call.stage({"x": x})
+    assert call.inputs["x"] is buf and torch.equal(buf, x)
+    gen.manual_seed(2)
+    assert torch.equal(call(w), eager(x, 2.0, 2)) and call.captures == 1
+    call.stage({"x": torch.arange(4.0)})
+    assert call.inputs["x"] is not buf and call.graph is None
+    call(w)
+    call(w)
+    assert call.captures == 2
+    w[0] = torch.tensor(3.0)
+    gen.manual_seed(3)
+    assert torch.equal(call(w), eager(torch.arange(4.0), 3.0, 3)) and call.captures == 3
 
 
 def test_gloo_mesh_is_refused(tiny_asset):
@@ -103,21 +219,26 @@ def test_gloo_mesh_is_refused(tiny_asset):
     for compile_fn in (train.compile_fused_step, train.compile_train_fns):
         with pytest.raises(ValueError, match="eager train.fused_step"):
             compile_fn(cfg, consts, gloo)
-    assert train._fit_route(consts, gloo) == "eager fused_step (CPU)"
+    reason = graphs.eager_reason(consts.smpl.v_template.device, gloo, torch.is_anomaly_enabled())
+    assert train._fit_route("compile_fused_step", "fused_step", reason, gloo) == "eager fused_step (CPU)"
 
 
 def test_fit_route(tiny_asset, capsys):
     """`fit` says its route in its first log line: the graph on the card
     (alone or on an NCCL mesh), the eager step on the CPU, on gloo and
     under anomaly mode."""
-    card = types.SimpleNamespace(smpl=types.SimpleNamespace(
-        v_template=types.SimpleNamespace(device=torch.device("cuda", 0))))
+    card = torch.device("cuda", 0)
+
+    def route(mesh):  # as `train._run` asks for the synthetic stream
+        reason = graphs.eager_reason(card, mesh, torch.is_anomaly_enabled())
+        return train._fit_route("compile_fused_step", "fused_step", reason, mesh)
+
     nccl = types.SimpleNamespace(backend="nccl", world=2)
-    assert train._fit_route(card, None).startswith("graph: compile_fused_step")
-    assert train._fit_route(card, nccl).endswith("(NCCL mesh of 2)")
-    assert "gloo" in train._fit_route(card, types.SimpleNamespace(backend="gloo", world=2))
+    assert route(None).startswith("graph: compile_fused_step")
+    assert route(nccl).endswith("(NCCL mesh of 2)")
+    assert "gloo" in route(types.SimpleNamespace(backend="gloo", world=2))
     with torch.autograd.detect_anomaly(check_nan=False):
-        assert "--debug-nans" in train._fit_route(card, None)
+        assert "--debug-nans" in route(None)
     train.fit(_cfg(num_steps=1), asset=tiny_asset, device="cpu")
     assert "fit: eager fused_step (CPU)" in capsys.readouterr().err
 
@@ -213,6 +334,60 @@ def test_predictor_outputs_outlive_later_requests(tiny_asset):
     p(x[1])
     p(x[2])
     assert all(torch.equal(first[k], kept[k]) for k in kept)
+
+
+def test_the_graph_route_of_the_predictor_is_the_eager_one(tiny_asset, stub_graphs, monkeypatch):
+    """The Predictor's bucket graphs (a stub capture): `warmup` captures
+    each bucket once; requests of 4, then 3 (padded with zeros in the
+    bucket's buffer over the 4th image), then 1, equal the eager
+    Predictor's bitwise, and capture nothing more."""
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+    cfg = _cfg().model
+    model, consts = net.init(tiny_asset, cfg, seed=3, device="cpu")
+    p_g = serve.Predictor(cfg, model, consts, buckets=(2, 4))
+    p_e = serve.Predictor(cfg, model, consts, buckets=(2, 4), graphs=False)
+    assert p_g.graphs and not p_e.graphs
+    p_g.warmup()
+    assert len(stub_graphs) == 2 and p_g.bucket_graph(4) is not None
+    rng = np.random.RandomState(6)
+    for n in (4, 3, 1):
+        x = rng.uniform(-1, 1, (n, SIZE, SIZE, 3)).astype(np.float32)
+        got, want = p_g(x), p_e(x)
+        assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want), n
+    assert len(stub_graphs) == 2
+
+
+def test_captured_calls_are_freed_without_the_cyclic_collector(tiny_asset, monkeypatch):
+    """A graph that the cyclic collector frees may be reset in the middle of
+    another capture, which breaks that capture (seen on the card), so every
+    captured call is freed when its last reference goes: a compiled step,
+    a Predictor with its bucket calls, and the evaluators' cached calls at
+    `clear_graphs`. Under a stub capture whose graph holds no function."""
+    monkeypatch.setattr(graphs, "eager_reason", lambda device, *args, **kw: None)
+    monkeypatch.setattr(graphs, "warm_up", lambda fn, device: fn())
+    stub = types.SimpleNamespace(replay=lambda: None)
+    monkeypatch.setattr(graphs, "capture", lambda fn, device, pool=None, generators=(): graphs.Graph(
+        stub, fn(), {}, 0.0, 0))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+    cfg = _cfg(lr_schedule="constant")
+    ts, consts = _state(tiny_asset, cfg)
+    step_fn = train.compile_fused_step(cfg, consts)
+    step_fn(ts)
+    step_fn(ts)
+    model, _ = net.init(tiny_asset, cfg.model, seed=4, device="cpu")
+    p = serve.Predictor(cfg.model, model, consts, buckets=(2,))
+    p(np.zeros((1, SIZE, SIZE, 3), np.float32))
+    evaluate.clear_graphs()
+    evaluate.evaluate(model, consts, dataclasses.replace(cfg, batch_size=1), 1)
+    refs = [weakref.ref(x) for x in (step_fn, p, p._calls[2], *evaluate._graphs.values())]
+    assert len(refs) == 4
+    gc.disable()
+    try:
+        del step_fn, p
+        evaluate.clear_graphs()
+        assert [r() for r in refs] == [None] * 4
+    finally:
+        gc.enable()
 
 
 def test_graph_launch_accounting():

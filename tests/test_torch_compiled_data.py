@@ -27,6 +27,7 @@ from indirect_learning_pose_shape_tpu_torch.models import ief
 from indirect_learning_pose_shape_tpu_torch.models import network as net
 from indirect_learning_pose_shape_tpu_torch.ops import raster
 from indirect_learning_pose_shape_tpu_torch.utils import graphs
+from tests.test_torch_compiled import stub_graphs  # noqa: F401  (a fixture)
 
 SIZE, SRC, BATCH, K = 32, 40, 2, 19
 
@@ -117,17 +118,20 @@ def test_disk_loops_name_their_route(tiny_asset, capsys):
     assert "fit: eager data_train_step (CPU)" in capsys.readouterr().err
     train.fit_preprocessed(cfg, _Preprocessed(cfg), asset=tiny_asset, device="cpu")
     assert "fit: eager train_step (CPU)" in capsys.readouterr().err
-    card = types.SimpleNamespace(smpl=types.SimpleNamespace(
-        v_template=types.SimpleNamespace(device=torch.device("cuda", 0))))
-    raw_names, pre_names = train._ROUTE_NAMES[True], train._ROUTE_NAMES[False]
-    assert train._fit_route(card, None, *raw_names) == "graph: compile_data_step, one CUDA graph replay a step"
-    assert train._fit_route(card, None, *pre_names).startswith("graph: compile_data_step(raw=False),")
+    card = torch.device("cuda", 0)
+
+    def route(mesh, *names):  # as `train._run` asks for a disk loop
+        return train._fit_route(*names, graphs.eager_reason(card, mesh, torch.is_anomaly_enabled()), mesh)
+
+    raw_names, pre_names = ("compile_data_step", "data_train_step"), ("compile_data_step(raw=False)", "train_step")
+    assert route(None, *raw_names) == "graph: compile_data_step, one CUDA graph replay a step"
+    assert route(None, *pre_names).startswith("graph: compile_data_step(raw=False),")
     nccl = types.SimpleNamespace(backend="nccl", world=2)
-    assert train._fit_route(card, nccl, *raw_names).endswith("(NCCL mesh of 2)")
+    assert route(nccl, *raw_names).endswith("(NCCL mesh of 2)")
     gloo = types.SimpleNamespace(backend="gloo", world=2)
-    assert train._fit_route(card, gloo, *raw_names) == "eager data_train_step (gloo mesh: host collectives)"
+    assert route(gloo, *raw_names) == "eager data_train_step (gloo mesh: host collectives)"
     with torch.autograd.detect_anomaly(check_nan=False):
-        assert train._fit_route(card, None, *pre_names) == "eager train_step (anomaly mode, --debug-nans)"
+        assert route(None, *pre_names) == "eager train_step (anomaly mode, --debug-nans)"
 
 
 def test_draw_augment_on_a_reseeded_generator_is_augment_draws():
@@ -226,8 +230,11 @@ def test_eval_graph_cache_captures_anew_for_new_tensors(tiny_asset, monkeypatch)
     cpu = torch.device("cpu")
 
     def run(m, c=cfg, qparams=None):
-        runner = evaluate._graph_runner("stream", m, consts, c, qparams, "int8", cpu)
+        runner = evaluate._runner("stream", m, consts, c, qparams, "int8", cpu, graphed=True)
         return runner(train.step_seed(11, 0))
+
+    def held(call):  # the model, the consts and the qparams a call holds
+        return call.bound()[:3]
 
     assert run(model) == {"n": torch.ones(())} and len(captured) == 1
     run(model)
@@ -241,7 +248,7 @@ def test_eval_graph_cache_captures_anew_for_new_tensors(tiny_asset, monkeypatch)
     assert len(captured) == 3
     run(model, dataclasses.replace(cfg, batch_size=1))
     assert len(captured) == 4
-    assert [e.held[0] for e in evaluate._graphs.values()] == [ema, model, model]
+    assert [held(e)[0] for e in evaluate._graphs.values()] == [ema, model, model]
     run(ema)  # a replay, and now the most recently used
     assert len(captured) == 4
     lru = next(iter(evaluate._graphs))
@@ -252,7 +259,46 @@ def test_eval_graph_cache_captures_anew_for_new_tensors(tiny_asset, monkeypatch)
     monkeypatch.setattr(evaluate.quant, "as_encoder", lambda qparams, cfg, device: None)
     run(model, qparams=qp)
     assert len(captured) == 10 and len(evaluate._graphs) == 8 and lru not in evaluate._graphs
-    assert any(e.held[0] is ema for e in evaluate._graphs.values())
-    assert next(reversed(evaluate._graphs.values())).held[-2] is qp
+    assert any(held(e)[0] is ema for e in evaluate._graphs.values())
+    assert all(x is y for x, y in zip(held(next(reversed(evaluate._graphs.values()))), [model, consts, qp]))
     evaluate.clear_graphs()
     assert not evaluate._graphs
+
+
+def test_the_graph_route_of_compile_data_step_is_the_eager_step(tiny_asset, stub_graphs):
+    """`compile_data_step`'s graph route (a stub capture, see
+    `stub_graphs`): each batch copied into the static inputs, the
+    augmentation generator registered and reseeded by (seed, step, 1),
+    three steps bitwise `data_train_step`'s in one capture; a batch of
+    another layout captures again."""
+    cfg = _cfg()
+    a, consts = train.init_state(cfg, tiny_asset, device="cpu")
+    b, _ = train.init_state(cfg, tiny_asset, device="cpu")
+    fn = train.compile_data_step(cfg, consts)
+    arrays = _arrays(n=8)
+    for step, rows in enumerate((np.arange(BATCH), np.arange(BATCH) + BATCH, np.arange(BATCH) + 2 * BATCH, [6])):
+        batch = _raw(arrays, rows)
+        want, got = train.data_train_step(b, batch, consts, cfg), fn(a, batch)
+        assert all(torch.equal(got[k], want[k]) for k in want), step
+        assert fn.captures == (1 if step < 3 else 2)
+    assert [len(g) for g in stub_graphs] == [1, 1]
+    _assert_same_state(a, b)
+
+
+def test_the_graph_route_of_the_evaluators_is_eager(tiny_asset, stub_graphs):
+    """`evaluate` and `evaluate_dataset` through their cached captured calls
+    (a stub capture) score what the eager route scores, the stream's
+    generator reseeded by (seed, i) for batch i and the disk batches
+    staged; the second `evaluate` replays only."""
+    evaluate.clear_graphs()
+    cfg = _cfg(augment=False)
+    model, consts = net.init(tiny_asset, cfg.model, seed=3, device="cpu")
+    for _ in range(2):
+        assert evaluate.evaluate(model, consts, cfg, 2, seed=11) == evaluate.evaluate(
+            model, consts, cfg, 2, seed=11, graphs=False)
+    assert len(stub_graphs) == 1
+    data = ds.NpzDataset(_arrays(n=4), BATCH)
+    got = evaluate.evaluate_dataset(model, consts, cfg, data)
+    assert got == evaluate.evaluate_dataset(model, consts, cfg, data, graphs=False)
+    assert len(stub_graphs) == 2
+    evaluate.clear_graphs()

@@ -148,7 +148,7 @@ def test_port_imports_no_jax():
         "from indirect_learning_pose_shape_tpu_torch.tools import make_synthetic_dataset, profile_serve\n"
         "from indirect_learning_pose_shape_tpu_torch.tools import profile_train, quality_eval, shard_dataset\n"
         "from indirect_learning_pose_shape_tpu_torch.tools import convert_smpl_pkl, export_model\n"
-        "from indirect_learning_pose_shape_tpu_torch.tools import import_resnet_weights, profile_step, recipe_parity\n"
+        "from indirect_learning_pose_shape_tpu_torch.tools import import_resnet_weights, recipe_parity\n"
         "from indirect_learning_pose_shape_tpu_torch.utils import checkpoint, debug, graphs, metrics, oracle\n"
         "from indirect_learning_pose_shape_tpu_torch.utils.assets import synthetic_asset\n"
         "cfg = network.ModelConfig(image_size=64,\n"

@@ -1,12 +1,12 @@
 """PyTorch port, the small tools: `tools/convert_smpl_pkl.py` on a
 chumpy-era pickle (the same arrays as the reference's conversion), and the
-card-only `tools/profile_step.py` refusing to run without a CUDA device.
+card-only `tools/profile_train.py` refusing to run without a CUDA device.
 """
 
 import numpy as np
 
 from indirect_learning_pose_shape_tpu.utils import assets as jassets
-from indirect_learning_pose_shape_tpu_torch.tools import convert_smpl_pkl, profile_step
+from indirect_learning_pose_shape_tpu_torch.tools import convert_smpl_pkl, profile_train
 from indirect_learning_pose_shape_tpu_torch.utils import assets
 from tests.test_predict_and_tools import _fake_chumpy_pkl
 
@@ -25,6 +25,6 @@ def test_convert_smpl_pkl_matches_reference(tmp_path, capsys):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
-def test_profile_step_needs_a_card(capsys):
-    assert profile_step.main(["--steps", "1"]) == 1
+def test_profile_train_needs_a_card(capsys):
+    assert profile_train.main(["--timed", "1"]) == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -262,14 +262,14 @@ def test_launch_counts_keep_their_interface_beside_other_counters():
 
 @pytest.mark.card
 def test_graph_routes_emit_spans_on_the_card(card, asset):
-    """`FusedStepGraph` and the Predictor's bucket graphs: each step and each
+    """`compile_fused_step`'s captured call and the Predictor's bucket graphs: each step and each
     request holds its `graph.replay`, and nothing is captured after the
     warm-up."""
     cfg = _cfg()
     model, consts = net.init(asset, cfg.model, seed=3, device=card)
     ts = train.new_state(model, cfg, seed=5)
     fn = train.compile_fused_step(cfg, consts)
-    assert isinstance(fn, train.FusedStepGraph)
+    assert isinstance(fn, graphs.CapturedCall)
     fn(ts)
     fn(ts)
     served, sconsts = net.init(asset, cfg.model, seed=4, device=card)
